@@ -6,24 +6,33 @@ the kernels are built for sm_90a) and the CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases; any failure raises and the script exits non-zero:
+The main path is the flagship frame program: 1280x720, 8-path SGM with
+D=128, block size 5, pre_filter_cap 0 and the matcher's default checks
+(uniqueness, LR check, speckle filter on). Phases; any failure raises and
+the script exits non-zero:
 
   1. device: the card's name and power limit, torch and CUDA versions;
-  2. build: nvcc builds the four kernels from csrc/ into build/torch_kernels/;
+  2. build: one nvcc per kernel source in csrc/, all started together, into
+     build/torch_kernels/;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-     the shapes of the 1280x720 BM D=128 frame program, exact equality, and
-     the median time of both (CUDA events);
-     The whole matcher on the card must also equal the repo's numpy golden
-     (cv2.StereoBM parity) on a crop of the frame;
-  4. engine: Engine.run on a synthetic 1280x720 stream through a
-     non-identity rectification, BM D=128, block size 13, speckle filter
-     off; every kernel's launch count must rise, there must be boxes with
-     valid disparities, and the frame outputs must equal the plain frame
-     program on the same inputs; then the frame program's median time (host
-     clock through a synchronise) and the pipelined frame rate.
+     the shapes of the frame program (SGM kernels also at an odd 700x1000,
+     D=64 shape; K12 also in the TPU's 3-D form), exact equality, and the
+     median time of both (CUDA events);
+     a snake through the speckle path where the 16-sweep cap binds; the BM
+     matcher against the repo's numpy golden (cv2.StereoBM parity);
+  4. engine, SGM: Engine.run on a synthetic 1280x720 stream through a
+     non-identity rectification with the launch counts set to 0 just
+     before; every kernel of the path must have launched, and every frame's
+     disparity, boxes, mask and count must equal the plain frame program;
+     then the frame program's median time and the pipelined frame rate;
+  5. stage profile of the SGM frame program (a CUDA event at each of the
+     frame program's stage marks) and the device's busy share
+     (torch.profiler);
+  6. engine, BM (D=128, block size 13, speckle filter on): the same checks
+     on its own path, counted apart.
 
-The last lines are one JSON object per kernel summary, the nvidia-smi line,
-and {"ok": true, "device": {...}}.
+The last lines are the kernels' JSON summary, the nvidia-smi line, and
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -36,9 +45,30 @@ import time
 
 import numpy as np
 
-W, H, D, BS = 1280, 720, 128, 13
-ENGINE_FRAMES = 6  # frames of the checked engine run
-TIMED_FRAMES = 40  # frames of the timed engine run
+W, H, D, BS = 1280, 720, 128, 5  # the flagship SGM point
+BM_D, BM_BS = 128, 13  # bench.py's BM point
+ODD = (700, 1000, 64)  # (H, W, D): H % 16 != 0 and W1 % 128 != 0
+ENGINE_FRAMES = 4  # frames of each checked engine run
+TIMED_FRAMES = 30  # frames of the timed engine run
+DEV = "cuda"
+
+#: H100 SXM peaks (NVIDIA data sheet): device memory bytes/s, and the
+#: non-tensor-core fp32 rate, used for the kernels' int32 operations (the
+#: data sheet lists no int32 rate; the fp32 rate is the higher one, so the
+#: bound stays a lower bound)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = 67e12
+#: the kernels of the SGM frame program and of the BM one
+SGM_PATH = ("remap_u8", "seg_min_propagate", "sgm_cost_volume", "vol_transpose",
+            "sgm_horiz", "sgm_vert_wta", "lr_resolve", "label_histogram_banded")
+BM_PATH = ("remap_u8", "seg_min_propagate", "bm_cost_wta", "lr_resolve",
+           "label_histogram_banded")
+
+
+def _sync():
+    import torch
+
+    torch.cuda.synchronize()
 
 
 def _time_ms(fn, reps=15, warm=3):
@@ -47,7 +77,7 @@ def _time_ms(fn, reps=15, warm=3):
 
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
+    _sync()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -62,15 +92,13 @@ def _time_ms(fn, reps=15, warm=3):
 
 def _wall_ms(fn, reps):
     """Median host milliseconds of fn() through a device synchronise."""
-    import torch
-
     fn()
     times = []
     for _ in range(reps):
-        torch.cuda.synchronize()
+        _sync()
         t0 = time.perf_counter()
         fn()
-        torch.cuda.synchronize()
+        _sync()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
@@ -86,47 +114,188 @@ def _max_abs_err(got, ref) -> int:
     return err
 
 
-def _rectification():
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(in_bytes: int, out_bytes: int, ops: float):
+    """(ms, "bytes" or "operations"): the least time for the work, each
+    input read once and each output written once."""
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
+    t_ops = ops / PEAK_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def _require_launched(launches: dict, names, what: str) -> None:
+    missing = [n for n in names if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels of the path not launched: {missing} "
+                             f"(launches {launches})")
+
+
+def _rectification(w, h):
     """Same warp for both eyes (rows stay aligned): a fractional x shift and
     a vertical stretch whose top and bottom rows sample outside the frame."""
-    from rt_depth_map_tpu.calib import RectificationResult
-    from rt_depth_map_tpu.sources import SyntheticStereoSource
+    from rt_depth_map_tpu_torch.calib import RectificationResult
+    from rt_depth_map_tpu_torch.sources import SyntheticStereoSource
 
-    oy, ox = np.mgrid[0:H, 0:W].astype(np.float32)
-    grid = np.stack([ox + 0.3, oy * (H + 8.0) / H - 4.0], axis=-1).astype(np.float32)
+    oy, ox = np.mgrid[0:h, 0:w].astype(np.float32)
+    grid = np.stack([ox + 0.3, oy * (h + 8.0) / h - 4.0], axis=-1).astype(np.float32)
     return RectificationResult(
         map_left=grid, map_right=grid.copy(),
-        Q=SyntheticStereoSource(W, H).q_matrix(), roi=(0, 0, W, H),
-        image_size=(W, H), rectify=None)
+        Q=SyntheticStereoSource(w, h).q_matrix(), roi=(0, 0, w, h),
+        image_size=(w, h))
 
 
-def _source(ring=0):
-    from rt_depth_map_tpu.sources import SyntheticStereoSource
-    from rt_depth_map_tpu.sources.synthetic import SyntheticObject
+def _source(w, h, ring=0):
+    from rt_depth_map_tpu_torch.sources import SyntheticStereoSource
+    from rt_depth_map_tpu_torch.sources.synthetic import SyntheticObject
 
     # disparity = 0.9 * W * 4.8 / z: 92, 69 and 50 px at W = 1280, inside
     # D = 128; placement in 1/1280 and 1/720 of the frame
-    sx, sy = W / 1280.0, H / 720.0
+    sx, sy = w / 1280.0, h / 720.0
     objects = [
-        SyntheticObject(x=int(x * sx), y=int(y * sy), w=int(w * sx),
-                        h=int(h * sy), z_units=z, vx=vx, vy=vy)
-        for x, y, w, h, z, vx, vy in (
+        SyntheticObject(x=int(x * sx), y=int(y * sy), w=int(ow * sx),
+                        h=int(oh * sy), z_units=z, vx=vx, vy=vy)
+        for x, y, ow, oh, z, vx, vy in (
             (180, 120, 300, 220, 60.0, 2.0, 0.0),
             (620, 330, 260, 200, 80.0, 0.0, 1.0),
             (960, 160, 200, 160, 110.0, -1.5, 0.0))
     ]
-    src = SyntheticStereoSource(W, H, seed=11, objects=objects, ring=ring)
+    src = SyntheticStereoSource(w, h, seed=11, objects=objects, ring=ring)
     src.rectified = False  # the engine applies the rectification maps
     return src
 
 
-def _config():
-    from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
+def _config(kind, w, h):
+    from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 
-    return EngineConfig(
-        width=W, height=H, number_of_disparities=D,
-        matcher=MatcherConfig(kind="bm", num_disparities=D, block_size=BS,
-                              speckle_window_size=0))
+    if kind == "sgm":
+        m = MatcherConfig(kind="sgm", num_disparities=D, block_size=BS,
+                          num_paths=8, pre_filter_cap=0)
+        nd = D
+    else:  # the BM defaults, speckle filter on
+        m = MatcherConfig(kind="bm", num_disparities=BM_D, block_size=BM_BS)
+        nd = BM_D
+    return EngineConfig(width=w, height=h, number_of_disparities=nd, matcher=m)
+
+
+def _engine(kind, w, h, ring=0):
+    from rt_depth_map_tpu_torch import Engine
+
+    return Engine(_config(kind, w, h), rectification=_rectification(w, h),
+                  source=_source(w, h, ring), device=DEV)
+
+
+def _snake(h, w, arms):
+    m = np.zeros((h, w), bool)
+    step = h // arms
+    for a in range(arms):
+        m[a * step, :] = True
+        if a + 1 < arms:
+            m[a * step: (a + 1) * step + 1, w - 1 if a % 2 == 0 else 0] = True
+    return m
+
+
+def _check_engine(kind, w, h, path):
+    """Engine.run with the counts set to 0 just before; every kernel of the
+    path launched and every frame equal to the plain frame program. Returns
+    the engine and the launch counts of the run."""
+    import torch
+
+    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    eng = _engine(kind, w, h)
+    eng.warmup()
+    results = {}
+    reset_launch_counts()
+    eng.run(frames=ENGINE_FRAMES, on_frame=lambda i, r: results.__setitem__(i, r),
+            print_stats_on_sigint=False)
+    launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
+    print(f"phase 4 {kind} engine {w}x{h}: {len(results)} frames, launches "
+          f"{launches}", flush=True)
+    if len(results) != ENGINE_FRAMES:
+        raise AssertionError(f"{kind} engine returned {len(results)} frames")
+    _require_launched(launches, path, f"{kind} engine")
+
+    ref_src = _source(w, h)
+    for i in sorted(results):
+        res = results[i]
+        lf, rf, _, _ = ref_src.render(i)
+        ref = eng.frame_program(torch.from_numpy(lf).to(DEV),
+                                torch.from_numpy(rf).to(DEV), plain=True)
+        for k in ("disparity", "boxes", "mask", "count"):
+            if not np.array_equal(getattr(res, k), ref[k].cpu().numpy()):
+                raise AssertionError(f"{kind} frame {i}: {k} differs from the "
+                                     f"plain program")
+        if res.disparity.shape != (h, w) or res.boxes[:, 4].sum() == 0:
+            raise AssertionError(f"{kind} frame {i}: bad shape or no box")
+        valid_in_boxes = res.count[res.boxes[:, 4] > 0]
+        if not (valid_in_boxes > 0).any() or not np.isfinite(
+                res.depth_cm[res.count > 0]).all():
+            raise AssertionError(f"{kind} frame {i}: no valid depth in any box")
+        print(f"phase 4 {kind} frame {i}: equals the plain program; boxes "
+              f"{int(res.boxes[:, 4].sum())} count {res.count.tolist()} "
+              f"depth_cm {[round(float(v), 1) for v in res.depth_cm[res.count > 0]]} "
+              f"valid disparity {float((res.disparity != -16).mean()):.3f}",
+              flush=True)
+    return eng, launches
+
+
+def _stage_profile(eng, left, right, frames=20):
+    """Median ms of each stage of the SGM frame program: a CUDA event at each
+    of `Engine.frame_program`'s stage marks (the events include host launch
+    gaps where the device waits)."""
+    import torch
+
+    rows = {}
+
+    def one():
+        marks = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+
+        mark("start")
+        eng.frame_program(left, right, mark=mark)
+        _sync()
+        for (_, a), (name, b) in zip(marks, marks[1:]):
+            rows.setdefault(name, []).append(a.elapsed_time(b))
+
+    one()
+    rows.clear()
+    for _ in range(frames):
+        one()
+    return {k: statistics.median(v) for k, v in rows.items()}
+
+
+def _device_busy(fn, frames=5):
+    """(device ms per frame, wall ms per frame) from torch.profiler over
+    `frames` calls of fn; device time sums the kernels' self device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            fn()
+        _sync()
+        wall = (time.perf_counter() - t0) * 1e3 / frames
+    dev_us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0)
+                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return dev_us / 1e3 / frames, wall
 
 
 def main() -> int:
@@ -136,83 +305,121 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
 
-    from rt_depth_map_tpu.golden import golden_stereo_bm
-    from rt_depth_map_tpu_torch import Engine
+    from rt_depth_map_tpu_torch.golden import golden_stereo_bm
     from rt_depth_map_tpu_torch.ops import bm as bm_ops
-    from rt_depth_map_tpu_torch.ops.cc import CC_MAX_ROUNDS, connected_components_bbox
-    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, _build, reset_launch_counts
+    from rt_depth_map_tpu_torch.ops import sgbm as sg
+    from rt_depth_map_tpu_torch.ops.cc import (
+        CC_MAX_ROUNDS,
+        connected_components_bbox,
+        connected_components_scan,
+    )
+    from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
+    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, _build
     from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import bm_cost_wta, bm_cost_wta_plain
     from rt_depth_map_tpu_torch.ops.cuda.cc_sweep import seg_min_propagate
+    from rt_depth_map_tpu_torch.ops.cuda.histogram import (
+        label_histogram,
+        label_histogram_banded,
+        label_histogram_plain,
+    )
     from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
     from rt_depth_map_tpu_torch.ops.cuda.remap import remap_u8, remap_u8_plain
-    from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
+        sgm_cost_volume,
+        sgm_cost_volume_plain,
+    )
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz, sgm_horiz_plain
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (
+        sgm_vert_wta,
+        sgm_vert_wta_plain,
+    )
+    from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import (
+        vol_transpose,
+        vol_transpose_plain,
+    )
     from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
     from rt_depth_map_tpu_torch.ops.remap import remap_bilinear
+    from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
 
     # -- 1. device ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    dev = torch.device("cuda")
+    card = _card()
+    dev = torch.device(DEV)
     name = torch.cuda.get_device_name(0)
     print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | devices {torch.cuda.device_count()}", flush=True)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    for stem in ("remap", "cc_sweep", "bm_kernel", "lr_resolve"):
-        _build.load(stem)
-        log = [ln.strip() for ln in _build.build_log.get(stem, "").splitlines()
-               if "registers" in ln or "spill" in ln]
-        print(f"phase 2 build {stem}: {_build.build_seconds.get(stem, 0.0):.1f} s "
-              f"{' | '.join(log)}", flush=True)
-    print(f"phase 2 build total: {time.perf_counter() - t0:.1f} s", flush=True)
+    stems = sorted({src.rsplit("/", 1)[1][:-3] for _, src, _ in KERNELS})
+    _build.build_all(stems)
+    for stem in stems:
+        log = _build.build_log.get(stem, "")
+        regs = [int(ln.split("Used ")[1].split()[0]) for ln in log.splitlines()
+                if "Used " in ln and "registers" in ln]
+        spills = sum(int(ln.split("bytes spill stores")[0].split(",")[-1])
+                     for ln in log.splitlines() if "bytes spill stores" in ln)
+        print(f"phase 2 build {stem}: {_build.build_seconds.get(stem, 0.0):.1f} s, "
+              f"{len(regs)} kernels, registers {min(regs, default=0)}-"
+              f"{max(regs, default=0)}, spill stores {spills} bytes", flush=True)
+    print(f"phase 2 build total (parallel): {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # -- 3. kernels vs plain at the frame program's shapes -------------------
-    eng = Engine(_config(), rectification=_rectification(), source=_source(),
-                 device="cuda")
-    st = eng.state
-    left_np, right_np, _, _ = _source().render(0)
+    sgm_eng = _engine("sgm", W, H)
+    st = sgm_eng.state
+    left_np, right_np, _, _ = _source(W, H).render(0)
     left = torch.from_numpy(left_np).to(dev)
     right = torch.from_numpy(right_np).to(dev)
     lstack = torch.cat([rgb_to_gray(left)[..., None], left], dim=-1).contiguous()
     rgray = rgb_to_gray(right)[..., None].contiguous()
     stats = {}
 
-    def check(wrapper, kernel_fn, plain_fn, what):
+    def check(wrapper, kernel_fn, plain_fn, what, bound=None, library_fn=None,
+              plain_reps=15):
         """Exact equality, then timing; the first shape checked for a kernel
-        is the one its summary reports."""
+        is the one its summary reports (bound: (in_bytes, out_bytes, ops))."""
         err = _max_abs_err(kernel_fn(), plain_fn())
         if err != 0:
             raise AssertionError(f"{wrapper.__name__} {what}: kernel != plain "
                                  f"(max |err| {err})")
-        ms, plain_ms = _time_ms(kernel_fn), _time_ms(plain_fn)
-        s = stats.setdefault(wrapper.__name__,
-                             dict(max_abs_err=0, ms=ms, plain_ms=plain_ms))
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        print(f"phase 3 {wrapper.__name__} {what}: exact, {ms:.3f} ms "
-              f"(plain {plain_ms:.3f} ms)", flush=True)
+        ms = _time_ms(kernel_fn)
+        plain_ms = _time_ms(plain_fn, reps=plain_reps, warm=1)
+        line = f"phase 3 {wrapper.__name__} {what}: exact, {ms:.4f} ms (plain {plain_ms:.3f} ms"
+        if wrapper.__name__ not in stats:
+            b_ms, b_by = _bound(*bound)
+            lib_ms = _time_ms(library_fn) if library_fn is not None else None
+            stats[wrapper.__name__] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                                           bound_ms=b_ms, bound_by=b_by,
+                                           library_ms=lib_ms)
+            line += f", bound {b_ms:.4f} ms by {b_by}"
+            if lib_ms is not None:
+                line += f", library {lib_ms:.4f} ms"
+        stats[wrapper.__name__]["max_abs_err"] = max(
+            stats[wrapper.__name__]["max_abs_err"], err)
+        print(line + ")", flush=True)
 
     # K1: left 4-channel and right gray planes through the warped maps
+    # (~16 operations per output value: four taps, weights, rounding)
     for what, img, tab in (("left gray+RGB", lstack, st.left),
                            ("right gray", rgray, st.right)):
         args = (img, tab.ix, tab.iy, tab.fx, tab.fy, tab.valid)
+        out_b = tab.ix.numel() * img.shape[-1]
         check(remap_u8, lambda a=args: remap_u8(*a),
-              lambda a=args: remap_u8_plain(*a), what)
+              lambda a=args: remap_u8_plain(*a), what,
+              bound=(_nbytes(*args), out_b, 16 * out_b))
 
-    # K2: the frame's filtered mask, and a snake on which the cap binds
-    frame = eng.frame_program(left, right, plain=True)
-    snake = np.zeros((H, W), bool)
-    step = 8
-    for a in range(H // step):
-        snake[a * step, :] = True
-        if a + 1 < H // step:
-            snake[a * step: (a + 1) * step + 1, W - 1 if a % 2 == 0 else 0] = True
-    snake_t = torch.from_numpy(snake).to(dev)
-    for what, m in (("frame mask", frame["mask"] != 0), ("snake", snake_t)):
-        check(seg_min_propagate, lambda m=m: connected_components_bbox(m, 8),
-              lambda m=m: connected_components_bbox(m, 8, plain=True), what)
+    # K2: the frame's filtered mask (4 fields, 8-connected), and a snake on
+    # which the cap binds (~8 operations per field value and sweep: hop,
+    # row and column run-min, flags)
+    frame = sgm_eng.frame_program(left, right, plain=True)
+    snake_t = torch.from_numpy(_snake(H, W, H // 8)).to(dev)
+    for what, msk in (("frame mask", frame["mask"] != 0), ("snake", snake_t)):
+        connected_components_bbox(msk, 8)
+        sweeps = seg_min_propagate.last_rounds
+        n_px = msk.numel()
+        check(seg_min_propagate, lambda m=msk: connected_components_bbox(m, 8),
+              lambda m=msk: connected_components_bbox(m, 8, plain=True), what,
+              bound=(n_px * (4 * 4 + 1 + 4), 4 * 4 * n_px, 8 * 4 * n_px * sweeps))
     full = connected_components_bbox(snake_t, 8, max_rounds=None)[0]
     full_rounds = seg_min_propagate.last_rounds
     capped = connected_components_bbox(snake_t, 8)[0]
@@ -221,98 +428,184 @@ def main() -> int:
     print(f"phase 3 cc cap: snake stopped at {CC_MAX_ROUNDS} sweeps, its fixed "
           f"point takes {full_rounds}", flush=True)
 
-    # K8 on the rectified, prefiltered frame; K6 on K8's output
+    # K3, K12, K4, K12, K5 on the rectified frame (flagship), then on a crop
+    # of it at the odd shape; K6 with the SGBM parameters; K7 and K10 on the
+    # SGM disparity's value-edge components
     lrect = remap_bilinear(lstack, st.left, plain=True)[..., 0].contiguous()
     rrect = remap_bilinear(rgray, st.right, plain=True)[..., 0].contiguous()
-    lp = xsobel_prefilter(lrect, st.matcher.pre_filter_cap)
-    rp = xsobel_prefilter(rrect, st.matcher.pre_filter_cap)
-    check(bm_cost_wta, lambda: bm_cost_wta(lp, rp, D, BS),
-          lambda: bm_cost_wta_plain(lp, rp, D, BS), f"D={D} bs={BS}")
-    # the whole frame as matcher region (no ROI): the most LR candidates
-    disp = bm_ops.stereo_bm(lrect, rrect, st.matcher.replace(disp12_max_diff=-1),
-                            plain=True)
-    best_cost = bm_cost_wta_plain(lp, rp, D, BS)[1]
-    _, _, d_int, key = bm_ops.lr_key_planes(disp, best_cost)
-    kw = dict(n_w=D + 1, r_lo=0, n_r=D + 1, Dpow=bm_ops.LR_DPOW,
+    m = st.matcher
+    p1, p2 = m.p1, max(m.p2, m.p1 + 1)
+    for (h, w, d) in ((H, W, D), ODD):
+        lr, rr = lrect[:h, :w].contiguous(), rrect[:h, :w].contiguous()
+        dtype = sg.volume_dtype(BS, m.pre_filter_cap)
+        lpl, rpl = sg.plane_stack(lr, m.pre_filter_cap), sg.plane_stack(rr, m.pre_filter_cap)
+        what = f"{h}x{w} D={d}"
+        C = sgm_cost_volume(lpl, rpl, d, BS, dtype)[0]
+        n = C.numel()
+        # ~21 operations per volume element: two BT costs, the quarter
+        # weighting, and the separable sliding window sums
+        check(sgm_cost_volume, lambda: sgm_cost_volume(lpl, rpl, d, BS, dtype)[0],
+              lambda: sgm_cost_volume_plain(lpl, rpl, d, BS, dtype)[0], what,
+              bound=(_nbytes(lpl, rpl), _nbytes(C), 21 * n), plain_reps=5)
+        # K12 turns the cost volume x-major for K4 and K4's sum back; the
+        # library call is torch's own strided copy
+        C4 = C[:, None]
+        check(vol_transpose, lambda: vol_transpose(C4),
+              lambda: vol_transpose_plain(C4), what + " cost volume",
+              bound=(_nbytes(C), _nbytes(C), 0),
+              library_fn=lambda: C4.transpose(0, 2).contiguous())
+        Ct = sg.swap_pixel_axes(C)
+        Sh_t = sgm_horiz(Ct, p1, p2)
+        # 8 operations per element and direction (min, shuffles, add)
+        check(sgm_horiz, lambda: sgm_horiz(Ct, p1, p2),
+              lambda: sgm_horiz_plain(Ct, p1, p2), what,
+              bound=(_nbytes(Ct), _nbytes(Sh_t), 2 * 8 * n), plain_reps=2)
+        S4 = Sh_t[:, None]
+        check(vol_transpose, lambda: vol_transpose(S4),
+              lambda: vol_transpose_plain(S4), what + " horizontal sum",
+              bound=(_nbytes(Sh_t), _nbytes(Sh_t), 0),
+              library_fn=lambda: S4.transpose(0, 2).contiguous())
+        Sh = sg.swap_pixel_axes(Sh_t)
+        del Ct, Sh_t, C4, S4
+        outs = sgm_vert_wta(C, Sh, p1, p2, m.uniqueness_ratio)
+        check(sgm_vert_wta, lambda: sgm_vert_wta(C, Sh, p1, p2, m.uniqueness_ratio),
+              lambda: sgm_vert_wta_plain(C, Sh, p1, p2, m.uniqueness_ratio), what,
+              bound=(_nbytes(C, Sh), _nbytes(*outs), 6 * 8 * n + 8 * n),
+              plain_reps=2)
+        best, minS, dval, uniq = outs
+        disp = torch.full((h, w), -16, dtype=torch.int16, device=dev)
+        disp[:, d:] = torch.where(uniq != 0, -16, dval).to(torch.int16)
+        if (h, w, d) == (H, W, D):
+            # the SGBM LR check's K6 call, on the planes lr_check_sgbm builds
+            d_intW, keyW, rms, kw = sg.lr_key_planes_sgbm(disp, best, minS, d,
+                                                          w - d, d)
+            outs6 = lr_resolve(d_intW, keyW, rms, **kw)
+            check(lr_resolve, lambda: lr_resolve(d_intW, keyW, rms, **kw),
+                  lambda: lr_resolve_plain(d_intW, keyW, rms, **kw), "SGBM LR check",
+                  bound=(_nbytes(d_intW, keyW, *rms), _nbytes(*outs6), 6 * h * w))
+            disp = sg.lr_check_sgbm(disp, best, minS, d, w - d, d, m.disp12_max_diff)
+        act = disp != -16
+        labels = connected_components_scan(disp, act, m.speckle_range * 16)
+        cnt = label_histogram(labels, act)
+        hb = (_nbytes(labels, act), _nbytes(cnt), h * w)
+        lib = (lambda lab=labels, a=act: torch.bincount(lab[a], minlength=lab.numel()))
+        check(label_histogram_banded,
+              lambda: label_histogram_banded(labels, act, m.speckle_window_size),
+              lambda: label_histogram_plain(labels, act), what + " speckle labels",
+              bound=hb, library_fn=lib)
+        check(label_histogram, lambda: label_histogram(labels, act),
+              lambda: label_histogram_plain(labels, act), what + " speckle labels",
+              bound=hb, library_fn=lib)
+        if not torch.equal(lib().reshape(h, w).to(torch.int32), cnt):
+            raise AssertionError("label_histogram != torch.bincount")
+        print(f"phase 3 SGM {what}: {float(act.float().mean()):.3f} of pixels "
+              f"valid after the LR check, {int((cnt > 0).sum())} components",
+              flush=True)
+        del C, Sh
+
+    # K12 in the TPU's own 3-D form, (A, D, B) -> (B, D, A), at the shape of
+    # its TPU call (one element per unit: the shared-memory tile variant)
+    xt = torch.randint(-3000, 3000, (1152, 128, 768), dtype=torch.int16, device=dev)
+    check(vol_transpose, lambda: vol_transpose(xt), lambda: vol_transpose_plain(xt),
+          "TPU form (1152, 128, 768) int16")
+    del xt
+
+    # the speckle path under the cap: a snake disparity whose value-edge
+    # propagation needs more than 16 sweeps
+    sdisp = torch.where(snake_t, 32, -16).to(torch.int16)
+    sact = sdisp != -16
+    if torch.equal(connected_components_scan(sdisp, sact, 512),
+                   connected_components_scan(sdisp, sact, 512, max_rounds=None)):
+        raise AssertionError("the round cap did not bind on the speckle snake")
+    for size in (100, H * W):
+        got = filter_speckles(sdisp, -16, size, 512)
+        ref = filter_speckles(sdisp, -16, size, 512, plain=True)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"speckle snake, max_size {size}: kernels != plain")
+        print(f"phase 3 speckle snake max_size {size}: exact under the cap, "
+              f"{int((got != -16).sum())} of {int(sact.sum())} pixels kept",
+              flush=True)
+
+    # K8 on the rectified, prefiltered frame; K6 on K8's output (BM point)
+    bm_cfg = _config("bm", W, H).matcher
+    lp = xsobel_prefilter(lrect, bm_cfg.pre_filter_cap)
+    rp = xsobel_prefilter(rrect, bm_cfg.pre_filter_cap)
+    bm_out = bm_cost_wta(lp, rp, BM_D, BM_BS)
+    # ~9 operations per pixel and d: |L - R|, the sliding window updates and
+    # the winner update
+    check(bm_cost_wta, lambda: bm_cost_wta(lp, rp, BM_D, BM_BS),
+          lambda: bm_cost_wta_plain(lp, rp, BM_D, BM_BS), f"D={BM_D} bs={BM_BS}",
+          bound=(_nbytes(lp, rp), _nbytes(*bm_out), 9 * H * W * BM_D))
+    bdisp = bm_ops.stereo_bm(lrect, rrect, bm_cfg.replace(
+        disp12_max_diff=-1, speckle_window_size=0), plain=True)
+    _, _, d_int, key = bm_ops.lr_key_planes(bdisp, bm_out[1])
+    kw = dict(n_w=BM_D + 1, r_lo=0, n_r=BM_D + 1, Dpow=bm_ops.LR_DPOW,
               c0=-bm_ops.LR_OFF, invalid=-16)
     check(lr_resolve, lambda: lr_resolve(d_int, key, (d_int,), **kw),
           lambda: lr_resolve_plain(d_int, key, (d_int,), **kw), "BM LR check")
-    print(f"phase 3 bm: {int((disp != -16).sum())} valid pixels before the LR "
+    print(f"phase 3 bm: {int((bdisp != -16).sum())} valid pixels before the LR "
           f"check", flush=True)
 
-    # the matcher on the card (K8 + K6, ragged tiles) against the repo's numpy
-    # golden (cv2.StereoBM parity, rt_depth_map_tpu/golden/bm.py) on a crop
-    gl = lrect[H // 4: H // 4 + 96, W // 8: W // 8 + 300].contiguous()
-    gr = rrect[H // 4: H // 4 + 96, W // 8: W // 8 + 300].contiguous()
-    small = st.matcher.replace(num_disparities=64)
-    ref = golden_stereo_bm(gl.cpu().numpy(), gr.cpu().numpy(), 64, BS,
-                           speckle_window_size=0)
-    got = bm_ops.stereo_bm(gl, gr, small).cpu().numpy()
-    if not np.array_equal(got, ref) or (ref == -16).all():
-        raise AssertionError("stereo_bm on the card != the numpy golden")
-    print(f"phase 3 stereo_bm 96x300 D=64: equals the numpy golden "
-          f"({int((ref != -16).sum())} valid pixels)", flush=True)
+    # the BM matcher on the card (K8 + K6, ragged tiles; then with the
+    # speckle filter, on a crop holding the 50 px object) against the repo's
+    # numpy golden (cv2.StereoBM parity) on 96x300 crops at D=64
+    small = bm_cfg.replace(num_disparities=64)
+    for (y0, x0), sws in (((H // 4, W // 8), 0),
+                          ((H // 4, W * 900 // 1280), small.speckle_window_size)):
+        gl = lrect[y0: y0 + 96, x0: x0 + 300].contiguous()
+        gr = rrect[y0: y0 + 96, x0: x0 + 300].contiguous()
+        ref = golden_stereo_bm(gl.cpu().numpy(), gr.cpu().numpy(), 64, BM_BS,
+                               speckle_window_size=sws,
+                               speckle_range=small.speckle_range)
+        got = bm_ops.stereo_bm(gl, gr, small.replace(speckle_window_size=sws))
+        if not np.array_equal(got.cpu().numpy(), ref) or (ref == -16).all():
+            raise AssertionError(f"stereo_bm on the card != the numpy golden "
+                                 f"(speckle window {sws})")
+        print(f"phase 3 stereo_bm 96x300 D=64 speckle window {sws}: equals the "
+              f"numpy golden ({int((ref != -16).sum())} valid pixels)", flush=True)
 
-    # -- 4. engine ---------------------------------------------------------
-    eng.warmup()
-    results = {}
-    reset_launch_counts()
-    eng.run(frames=ENGINE_FRAMES, on_frame=lambda i, r: results.__setitem__(i, r),
-            print_stats_on_sigint=False)
-    launches = {w.__name__: w.launches for w, _, _ in KERNELS}
-    print(f"phase 4 engine: {len(results)} frames, launches {launches}", flush=True)
-    if len(results) != ENGINE_FRAMES:
-        raise AssertionError(f"engine returned {len(results)} frames")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel was not launched by the engine: {launches}")
-
-    ref_src = _source()
-    for i in sorted(results):
-        res = results[i]
-        lf, rf, _, _ = ref_src.render(i)
-        ref = eng.frame_program(torch.from_numpy(lf).to(dev),
-                                torch.from_numpy(rf).to(dev), plain=True)
-        for k in ("disparity", "boxes", "mask", "count"):
-            if not np.array_equal(getattr(res, k), ref[k].cpu().numpy()):
-                raise AssertionError(f"frame {i}: {k} differs from the plain program")
-        if res.disparity.shape != (H, W) or res.boxes[:, 4].sum() == 0:
-            raise AssertionError(f"frame {i}: bad shape or no box")
-        valid_in_boxes = res.count[res.boxes[:, 4] > 0]
-        if not (valid_in_boxes > 0).any() or not np.isfinite(
-                res.depth_cm[res.count > 0]).all():
-            raise AssertionError(f"frame {i}: no valid depth in any box")
-        print(f"phase 4 frame {i}: boxes {int(res.boxes[:, 4].sum())} "
-              f"count {res.count.tolist()} depth_cm "
-              f"{[round(float(v), 1) for v in res.depth_cm[res.count > 0]]}", flush=True)
-
+    # -- 4. the SGM engine (the main path) -----------------------------------
+    sgm_eng, sgm_launches = _check_engine("sgm", W, H, SGM_PATH)
     pair = (left, right)
-
-    def frame_kernel():
-        eng.frame_program(*pair)
-
-    def frame_plain():
-        eng.frame_program(*pair, plain=True)
-
-    frame_ms = _wall_ms(frame_kernel, reps=10)
-    plain_frame_ms = _wall_ms(frame_plain, reps=5)
+    frame_ms = _wall_ms(lambda: sgm_eng.frame_program(*pair), reps=10)
+    plain_frame_ms = _wall_ms(lambda: sgm_eng.frame_program(*pair, plain=True), reps=2)
     # a ring of 8 pre-rendered frames: a camera delivers frames at sensor
     # rate, while painting the synthetic scene per grab would bound the loop
-    timed = Engine(_config(), rectification=_rectification(),
-                   source=_source(ring=8), device="cuda")
+    timed = _engine("sgm", W, H, ring=8)
     timed.warmup()
     timed.run(frames=TIMED_FRAMES, print_stats_on_sigint=False)
     fps = timed.stats.wall_frames / timed.stats.wall_seconds
-    print(f"phase 4 timing on {card}: frame program {frame_ms:.2f} ms "
-          f"(plain {plain_frame_ms:.2f} ms), pipelined run {fps:.1f} frames/s "
+    print(f"phase 4 SGM timing on {card}: frame program {frame_ms:.3f} ms "
+          f"(plain {plain_frame_ms:.1f} ms), pipelined run {fps:.2f} frames/s "
           f"over {TIMED_FRAMES} frames", flush=True)
+
+    # -- 5. where the SGM frame's time goes ----------------------------------
+    prof = _stage_profile(sgm_eng, left, right)
+    for k, v in prof.items():
+        print(f"phase 5 stage {k}: {v:.4f} ms", flush=True)
+    print(f"phase 5 stage sum: {sum(prof.values()):.3f} ms", flush=True)
+    dev_ms, wall_ms = _device_busy(lambda: sgm_eng.frame_program(*pair))
+    print(f"phase 5 torch.profiler: {dev_ms:.3f} ms of device time per frame "
+          f"against {wall_ms:.3f} ms of wall time (busy {dev_ms / wall_ms:.3f})",
+          flush=True)
+    del timed
+
+    # -- 6. the BM engine, its own path -------------------------------------
+    bm_eng, bm_launches = _check_engine("bm", W, H, BM_PATH)
+    bm_ms = _wall_ms(lambda: bm_eng.frame_program(*pair), reps=10)
+    print(f"phase 6 BM timing on {card}: frame program {bm_ms:.3f} ms", flush=True)
 
     kernels = []
     for wrapper, source, replaces in KERNELS:
-        s = stats[wrapper.__name__]
-        kernels.append(dict(name=wrapper.__name__, route="cuda", source=source,
-                            replaces=replaces, launches=launches[wrapper.__name__],
+        n = wrapper.__name__
+        s = stats[n]
+        # the main path's counts; K8 runs on the BM path only
+        launches = sgm_launches[n] if n in SGM_PATH else bm_launches[n]
+        kernels.append(dict(name=n, route="cuda", source=source,
+                            replaces=replaces, launches=launches,
                             max_abs_err=s["max_abs_err"], ms=s["ms"],
-                            plain_ms=s["plain_ms"]))
+                            plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
+                            bound_by=s["bound_by"], library_ms=s["library_ms"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ morphology footprint, the reprojection matrix Q and the HSV thresholds.
 `engine_state_from_numpy` turns the numpy attributes of an engine (the JAX
 package's `Engine` has the same ones, `pipeline/engine.py:135-163`) into the
 port's device state: the remap maps quantized to integer tables, the ellipse
-as row segments, Q as float32.
+as row segments, Q as float32, and the matcher's parameters with the SGM
+penalty P2 raised to at least P1 + 1, as `rt_depth_map_tpu/ops/sgbm.py:444`
+does per call.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from rt_depth_map_tpu.config import MatcherConfig
+from rt_depth_map_tpu_torch.config import MatcherConfig
 from rt_depth_map_tpu_torch.ops.morphology import ellipse_kernel, row_segments
 from rt_depth_map_tpu_torch.ops.remap import RemapTable, remap_table
 
@@ -49,6 +51,9 @@ def engine_state_from_numpy(map_left: np.ndarray, map_right: np.ndarray,
     src_hw = map_left.shape[:2]
     left = remap_table(map_left[ry: ry + rh, rx: rx + rw], src_hw, device)
     right = remap_table(map_right[ry: ry + rh, rx: rx + rw], src_hw, device)
+    if matcher_config.kind == "sgm":
+        matcher_config = matcher_config.replace(
+            p2=max(matcher_config.p2, matcher_config.p1 + 1))
     return EngineState(
         left=left,
         right=right,

@@ -5,8 +5,8 @@ strict shapes (GPU kernels need no pad-to-kernel-grid route). The cost and
 winner search run in K8 (`ops/cuda/bm_kernel.py`); the texture check,
 uniqueness test, subpixel step and the per-frame ROI mask are elementwise
 torch, with the ROI scalars left on the device; the left-right check resolves
-through K6 (`ops/cuda/lr_resolve.py`). The speckle filter is not ported yet:
-a config that enables it is refused.
+through K6 (`ops/cuda/lr_resolve.py`), and the speckle filter runs on K2 and
+K7 (`ops/speckle.py`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from rt_depth_map_tpu.config import MatcherConfig
+from rt_depth_map_tpu_torch.config import MatcherConfig
 from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
     bm_cost_wta,
     bm_cost_wta_plain,
@@ -23,6 +23,7 @@ from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
 )
 from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
+from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
 
 DISP_SHIFT = 4
 DISP_SCALE = 1 << DISP_SHIFT
@@ -61,9 +62,6 @@ def lr_check(disp: torch.Tensor, cost: torch.Tensor, num_disp: int,
 def _check_config(cfg: MatcherConfig) -> None:
     if cfg.min_disparity != 0:
         raise NotImplementedError("the port's BM supports min_disparity 0 only")
-    if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
-        raise NotImplementedError(
-            "the speckle filter is not ported yet: set speckle_window_size=0")
 
 
 def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
@@ -128,4 +126,7 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
 
     if cfg.disp12_max_diff >= 0:
         disp = lr_check(disp, best_cost, D, cfg.disp12_max_diff, plain=plain)
+    if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
+        disp = filter_speckles(disp, invalid, cfg.speckle_window_size,
+                               cfg.speckle_range * DISP_SCALE, plain=plain)
     return disp

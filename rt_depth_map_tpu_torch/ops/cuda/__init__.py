@@ -9,8 +9,16 @@ built at first use (`_build.py`).
 
 from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import bm_cost_wta  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.cc_sweep import seg_min_propagate  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.histogram import (  # noqa: F401
+    label_histogram,
+    label_histogram_banded,
+)
 from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.remap import remap_u8  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import vol_transpose  # noqa: F401
 
 #: (wrapper, csrc file, TPU kernel it replaces) for every kernel of the port
 KERNELS = (
@@ -22,6 +30,18 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/bm_kernel.py:197"),
     (lr_resolve, "rt_depth_map_tpu_torch/csrc/lr_resolve.cu",
      "rt_depth_map_tpu/ops/pallas/lr_resolve.py:106"),
+    (sgm_cost_volume, "rt_depth_map_tpu_torch/csrc/sgm_cost.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_cost.py:283"),
+    (vol_transpose, "rt_depth_map_tpu_torch/csrc/vol_transpose.cu",
+     "rt_depth_map_tpu/ops/pallas/vol_transpose.py:31"),
+    (sgm_horiz, "rt_depth_map_tpu_torch/csrc/sgm_horiz.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:243"),
+    (sgm_vert_wta, "rt_depth_map_tpu_torch/csrc/sgm_vert_wta.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:542"),
+    (label_histogram_banded, "rt_depth_map_tpu_torch/csrc/histogram.cu",
+     "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
+    (label_histogram, "rt_depth_map_tpu_torch/csrc/histogram.cu",
+     "rt_depth_map_tpu/ops/pallas/histogram.py:309"),
 )
 
 

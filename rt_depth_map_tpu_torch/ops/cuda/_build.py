@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its own
 for Hopper (`sm_90a`) into `build/torch_kernels/<name>-<hash>.so` at the root
-of the checkout. The hash covers the source and the compiler flags, so an
-edited kernel is rebuilt and an unchanged one is reused. A file lock
-serialises concurrent builds (several processes importing the port at once).
+of the checkout. The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the compiler flags, so an edited kernel is rebuilt and an
+unchanged one is reused. A file lock serialises concurrent builds (several
+processes importing the port at once); `build_all` runs one nvcc per source,
+all at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a machine with no CUDA toolkit.
@@ -50,29 +52,51 @@ def _nvcc() -> str:
     return path
 
 
+def _so_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> None:
+    """Build every library of `names` that is not built yet, one nvcc
+    process per source, all started together; raise if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        procs = []
+        for name in names:
+            so = _so_path(name)
+            if so.exists():
+                continue
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{name}.cu")]
+            procs.append((name, so, tmp, time.perf_counter(), subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for name, so, tmp, t0, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu:\n{out}")
+                continue
+            os.replace(tmp, so)
+            build_seconds[name] = time.perf_counter() - t0
+            build_log[name] = out
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built first if needed."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if not so.exists():
-            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name}.cu:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so)
-            build_seconds[name] = time.perf_counter() - t0
-            build_log[name] = proc.stdout + proc.stderr
-    lib = ctypes.CDLL(str(so))
+    build_all([name])
+    lib = ctypes.CDLL(str(_so_path(name)))
     lib.rtdm_error_string.argtypes = [ctypes.c_int]
     lib.rtdm_error_string.restype = ctypes.c_char_p
     _libs[name] = lib

@@ -1,18 +1,25 @@
 """The Engine: host frame loop + the per-frame program on the port's device.
 
-Port of `rt_depth_map_tpu/pipeline/engine.py` for a single frame stream with
-the BM matcher. Host side: grab -> MJPEG decode (stale-frame reuse on corrupt
-input) -> H2D, with an optional prefetch thread. Device side, one method per
-frame:
+Port of `rt_depth_map_tpu/pipeline/engine.py` for a single frame stream.
+Host side: grab -> MJPEG decode (stale-frame reuse on corrupt input) -> H2D,
+with an optional prefetch thread. Device side, one method per frame:
 
   gray x2 -> rectification remap (K1) with ROI crop -> HSV threshold ->
-  morphological open/close -> connected-component boxes (K2) -> matcher ROI
-  -> BM disparity (K8 cost + winner, K6 LR check) -> /16 -> Q reprojection
-  -> per-box masked depth means.
+  morphological open/close -> connected-component boxes (K2) -> matcher ->
+  /16 -> Q reprojection -> per-box masked depth means.
+
+The matcher is the configured kind, as in the reference's frame program:
+
+  sgm: 8-path SGM (K3 cost volume, K12 transposes around K4 horizontal
+       paths, K5 vertical and diagonal paths + winner-take-all, K6 LR
+       check) over the whole frame;
+  bm:  block matching inside the boxes' ROI (K8 cost + winner, K6 LR check);
+
+each followed by the speckle filter (K2 labels, K7 counts, K2 decision).
 
 PyTorch runs eagerly, so there is no compile step; the CUDA kernels build at
 their first launch. Not ported yet: batch > 1, run_preloaded, the WLS post
-filter, show_disparity_value, the SGM matcher and the speckle filter.
+filter, show_disparity_value, and SGM's num_paths 4 and 5.
 """
 
 from __future__ import annotations
@@ -26,9 +33,8 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from rt_depth_map_tpu.calib import RectificationResult
-from rt_depth_map_tpu.config import EngineConfig
-from rt_depth_map_tpu.sources import make_source
+from rt_depth_map_tpu_torch.calib import RectificationResult
+from rt_depth_map_tpu_torch.config import EngineConfig
 from rt_depth_map_tpu_torch.convert import engine_state_from_numpy
 from rt_depth_map_tpu_torch.ops.bm import stereo_bm
 from rt_depth_map_tpu_torch.ops.color import in_range, rgb_to_gray, rgb_to_hsv
@@ -40,7 +46,10 @@ from rt_depth_map_tpu_torch.ops.reproject import (
     disparity_fixed_to_float,
     reproject_to_3d,
 )
+from rt_depth_map_tpu_torch.ops.sgbm import check_config as check_sgm_config
+from rt_depth_map_tpu_torch.ops.sgbm import stereo_sgbm
 from rt_depth_map_tpu_torch.pipeline.stats import ExecTimeStats
+from rt_depth_map_tpu_torch.sources import make_source
 
 
 @dataclasses.dataclass
@@ -135,8 +144,12 @@ class Engine:
         self.num_disparities = max(16, (cfg.scaled_num_disparities(W) // 16) * 16)
         self.min_object_size = max(1, cfg.scaled_min_object_size(W, H))
         mcfg = cfg.matcher.replace(num_disparities=self.num_disparities)
-        if mcfg.kind != "bm":
-            raise NotImplementedError("the port runs the BM matcher only")
+        if mcfg.kind not in ("bm", "sgm"):
+            raise ValueError(f"unknown matcher kind {mcfg.kind!r}")
+        if mcfg.kind == "sgm":
+            if mcfg.block_size == 13:
+                mcfg = mcfg.replace(block_size=5)  # SGBM reference block size
+            check_sgm_config(mcfg, self.roi[2])
         self.matcher_config = mcfg
 
         hsv = cfg.hsv_range()
@@ -156,34 +169,50 @@ class Engine:
 
     # -- device program ----------------------------------------------------
     def frame_program(self, left_rgb: torch.Tensor, right_rgb: torch.Tensor,
-                      plain: bool = False) -> dict:
+                      plain: bool = False,
+                      mark: Optional[Callable[[str], None]] = None) -> dict:
         """One frame on (H, W, 3) uint8 device tensors -> dict of device
         tensors (FrameResult's fields). plain=True runs the kernels' plain
-        PyTorch versions instead (the reference for the card's kernels)."""
+        PyTorch versions instead (the reference for the card's kernels).
+        mark(name), when given, is called after each stage (a stage
+        profile records a CUDA event there)."""
         cfg, st = self.cfg, self.state
+        mark = mark or (lambda name: None)
         lg = rgb_to_gray(left_rgb)
         rg = rgb_to_gray(right_rgb)
+        mark("gray x2")
         # the left gray and RGB planes share a map: one 4-channel remap
         lrect4 = remap_bilinear(torch.cat([lg[..., None], left_rgb], dim=-1),
                                 st.left, plain=plain)
         lrect = lrect4[..., 0].contiguous()
         rgbr = lrect4[..., 1:]
         rrect = remap_bilinear(rg, st.right, plain=plain)
+        mark("remap K1 (left 4-ch + right 1-ch)")
 
         hsv = rgb_to_hsv(rgbr)
         mask = in_range(hsv, st.hsv_low, st.hsv_high)
+        mark("HSV + inRange")
         filt = morph_open_close(mask, st.morph_segments)
+        mark("morphology open+close")
         boxes = detect_objects(filt, st.min_object_size, cfg.max_objects,
                                plain=plain)
-        mroi = matching_region(boxes)
-        # ROI2 intentionally unset (the reference's FIXME, estimator.cpp:55)
-        disp = stereo_bm(lrect, rrect, st.matcher, roi1=mroi, roi2=None,
-                         plain=plain)
+        mark("detect: K2 boxes, roots")
+        if st.matcher.kind == "sgm":
+            disp = stereo_sgbm(lrect, rrect, st.matcher, plain=plain, mark=mark)
+        else:
+            # ROI2 intentionally unset (the reference's FIXME,
+            # estimator.cpp:55)
+            disp = stereo_bm(lrect, rrect, st.matcher,
+                             roi1=matching_region(boxes), roi2=None,
+                             plain=plain)
+            mark("BM matcher (K8, K6, speckle)")
 
         dint = disparity_fixed_to_float(disp)
         xyz = reproject_to_3d(dint, st.Q, st.matcher.min_disparity, True)
+        mark("/16 + reprojection")
         depth_cm, mean_z, count = calc_depth(xyz, filt, boxes,
                                              cfg.calibration_unit_mm)
+        mark("calc_depth")
         return dict(disparity=disp, boxes=boxes, depth_cm=depth_cm,
                     mean_z=mean_z, count=count, mask=filt, rgb_rect=rgbr)
 
@@ -197,7 +226,7 @@ class Engine:
         if frame.encoding == "raw":
             return frame.array
         if self.decoder is None:
-            from rt_depth_map_tpu.decode import MJPEGDecoder
+            from rt_depth_map_tpu_torch.decode import MJPEGDecoder
 
             self.decoder = MJPEGDecoder()
         arr = self.decoder.decode(frame.data, self.source.width, self.source.height)

@@ -3,23 +3,32 @@ path (rt_depth_map_tpu/ops/bm.py); the plain K8 (cost + winner) and K6 (LR
 resolve) against the Pallas kernels themselves in interpret mode, as
 tests/test_pallas_kernels.py runs them. Integer, bit-exact."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
-from rt_depth_map_tpu.config import MatcherConfig
+from rt_depth_map_tpu.config import MatcherConfig as JMatcherConfig
 from rt_depth_map_tpu.golden import golden_stereo_bm
 from rt_depth_map_tpu.ops import bm as jbm
 from rt_depth_map_tpu.ops.pallas.bm_kernel import bm_cost_wta as pallas_bm
 from rt_depth_map_tpu.ops.pallas.lr_resolve import lr_resolve_pallas
 from rt_depth_map_tpu.ops.prefilter import xsobel_prefilter as jprefilter
+from rt_depth_map_tpu_torch.config import MatcherConfig
 from rt_depth_map_tpu_torch.ops import bm as tbm
 from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import bm_cost_wta, bm_cost_wta_plain
 from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
 from torch_helpers import cuda_or_skip, stereo_pair, t
+
+
+def jax_config(cfg: MatcherConfig, **kw) -> JMatcherConfig:
+    """The JAX package's MatcherConfig with the port config's fields."""
+    return JMatcherConfig(**{**dataclasses.asdict(cfg), **kw})
 
 
 def _prefiltered(seed, H, W, shift, cap=31):
@@ -134,10 +143,10 @@ def test_stereo_bm_matches_jax(roi, p):
     params = PARAMS[p]
     H, W = 32, 112
     left, right = stereo_pair(21, H, W, 6)
-    cfg = MatcherConfig(kind="bm", speckle_window_size=0, backend="xla", **params)
+    cfg = MatcherConfig(kind="bm", speckle_window_size=0, **params)
     r = ROIS[roi]
-    ref = np.asarray(jbm.stereo_bm(jnp.asarray(left), jnp.asarray(right), cfg,
-                                   roi1=r))
+    ref = np.asarray(jbm.stereo_bm(jnp.asarray(left), jnp.asarray(right),
+                                   jax_config(cfg, backend="xla"), roi1=r))
     got = tbm.stereo_bm(t(left), t(right), cfg, roi1=r)
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), ref)
@@ -156,9 +165,16 @@ def test_stereo_bm_matches_numpy_golden(H, W, D, bs):
 
 
 def test_stereo_bm_refuses_speckle_and_min_disparity():
+    """min_disparity != 0 is still refused; the speckle filter now runs
+    (tests/test_torch_speckle.py holds it against JAX)."""
     left, right = stereo_pair(1, 16, 64, 3)
-    with pytest.raises(NotImplementedError):
-        tbm.stereo_bm(t(left), t(right), MatcherConfig(num_disparities=16))
+    cfg = MatcherConfig(num_disparities=16)
+    assert cfg.speckle_window_size > 0
+    with_speckle = tbm.stereo_bm(t(left), t(right), cfg)
+    # the reference as one compiled program (no eager per-op dispatch)
+    ref = jax.jit(jbm.stereo_bm, static_argnums=2)(
+        jnp.asarray(left), jnp.asarray(right), jax_config(cfg, backend="xla"))
+    np.testing.assert_array_equal(with_speckle.numpy(), np.asarray(ref))
     with pytest.raises(NotImplementedError):
         tbm.stereo_bm(t(left), t(right), MatcherConfig(
             num_disparities=16, speckle_window_size=0, min_disparity=2))

@@ -1,8 +1,11 @@
 """Port parity: the single-frame Engine of rt_depth_map_tpu_torch against the
-JAX Engine, frame by frame, on a non-identity rectification with the BM
-matcher and the speckle filter off. Integer fields are exact; depth_cm and
-mean_z agree to rtol 1e-5 (float32 sums in another order)."""
+JAX Engine, frame by frame, on a non-identity rectification: the BM matcher
+with the speckle filter off, and 8-path SGM with the speckle filter on.
+Integer fields are exact; depth_cm and mean_z agree to rtol 1e-5 (float32
+sums in another order). The port's configs build the JAX ones field by
+field."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -11,17 +14,19 @@ import numpy as np
 import pytest
 import torch
 
-from rt_depth_map_tpu.calib import RectificationResult
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
+from rt_depth_map_tpu import config as jconfig
 from rt_depth_map_tpu.pipeline import Engine as JEngine
 from rt_depth_map_tpu.pipeline.stats import ExecTimeStats as JStats
-from rt_depth_map_tpu.sources import SyntheticStereoSource
-from rt_depth_map_tpu.sources.synthetic import SyntheticObject
+from rt_depth_map_tpu.sources import SyntheticStereoSource as JSyntheticStereoSource
 from rt_depth_map_tpu_torch import Engine
+from rt_depth_map_tpu_torch.calib import RectificationResult
+from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 from rt_depth_map_tpu_torch.convert import engine_state_from_numpy
 from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 from rt_depth_map_tpu_torch.ops.remap import quantize_map
 from rt_depth_map_tpu_torch.pipeline.stats import ExecTimeStats
+from rt_depth_map_tpu_torch.sources import SyntheticStereoSource
+from rt_depth_map_tpu_torch.sources.synthetic import SyntheticObject
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, D = 256, 96, 32
@@ -35,6 +40,20 @@ def _cfg():
     return EngineConfig(width=W, height=H, number_of_disparities=D, matcher=mcfg)
 
 
+def _sgm_cfg():
+    """8-path SGM at the flagship's matcher settings, speckle filter on."""
+    mcfg = MatcherConfig(kind="sgm", num_disparities=D, block_size=5,
+                         num_paths=8, pre_filter_cap=0)
+    return EngineConfig(width=W, height=H, number_of_disparities=D, matcher=mcfg)
+
+
+def jax_config(cfg: EngineConfig) -> jconfig.EngineConfig:
+    """The JAX package's EngineConfig with the port config's fields."""
+    fields = dataclasses.asdict(cfg)
+    fields["matcher"] = jconfig.MatcherConfig(**fields["matcher"])
+    return jconfig.EngineConfig(**fields)
+
+
 def _rectification():
     """Vertical stretch past the frame border plus a fractional x shift
     (tests/test_engine_batch.py), and a ROI crop."""
@@ -46,12 +65,17 @@ def _rectification():
                                rectify=None)
 
 
-def _source():
+def _source(cls=SyntheticStereoSource):
     objects = [SyntheticObject(x=40, y=20, w=100, h=50, z_units=60.0, vx=1.0),
                SyntheticObject(x=160, y=30, w=70, h=40, z_units=80.0, vy=0.5)]
-    src = SyntheticStereoSource(W, H, seed=5, objects=objects)
+    src = cls(W, H, seed=5, objects=objects)
     src.rectified = False  # the engines apply the rectification maps
     return src
+
+
+def _jsource():
+    """The JAX package's synthetic source (same frames as the port's copy)."""
+    return _source(JSyntheticStereoSource)
 
 
 def _assert_same(a, b, what=""):
@@ -65,7 +89,7 @@ def _assert_same(a, b, what=""):
 @pytest.fixture(scope="module")
 def engines():
     rect = _rectification()
-    return (JEngine(_cfg(), rectification=rect, source=_source()),
+    return (JEngine(jax_config(_cfg()), rectification=rect, source=_jsource()),
             Engine(_cfg(), rectification=rect, source=_source(), device="cpu"))
 
 
@@ -83,7 +107,7 @@ def test_engine_frames_match_jax(engines):
 
 def test_engine_run_with_prefetch_matches_jax():
     rect = _rectification()
-    jeng = JEngine(_cfg(), rectification=rect, source=_source())
+    jeng = JEngine(jax_config(_cfg()), rectification=rect, source=_jsource())
     teng = Engine(_cfg(), rectification=rect, source=_source(), device="cpu")
     ref, got = {}, {}
     assert jeng.run(frames=3, on_frame=lambda i, r: ref.__setitem__(i, r),
@@ -96,6 +120,23 @@ def test_engine_run_with_prefetch_matches_jax():
     assert teng.stats.wall_frames == 3
     # step() without prefetch goes through the same program
     _assert_same(jeng.step(), teng.step(), "step")
+
+
+def test_engine_sgm_frames_match_jax():
+    """The flagship frame program (8-path SGM, speckle filter on) at a small
+    size: the port's frames equal the JAX engine's."""
+    rect = _rectification()
+    jeng = JEngine(jax_config(_sgm_cfg()), rectification=rect, source=_jsource())
+    teng = Engine(_sgm_cfg(), rectification=rect, source=_source(), device="cpu")
+    assert dataclasses.asdict(teng.matcher_config) == dataclasses.asdict(
+        jeng.matcher_config)
+    src = _source()
+    left, right, _, _ = src.render(1)
+    ref = jeng.process_pair(left, right)
+    got = teng.process_pair(left, right)
+    _assert_same(ref, got, "sgm frame")
+    assert got.has_objects and (got.count > 0).any()
+    assert (got.disparity != -16).mean() > 0.3
 
 
 def test_engine_runs_plain_versions_on_cpu(engines):
@@ -122,7 +163,8 @@ def test_engine_state_from_numpy(engines):
     assert st.Q.dtype == torch.float32
     np.testing.assert_array_equal(st.hsv_low.numpy(), jeng.hsv_low)
     np.testing.assert_array_equal(st.hsv_high.numpy(), jeng.hsv_high)
-    assert st.matcher == jeng.matcher_config == teng.matcher_config
+    assert (dataclasses.asdict(st.matcher) == dataclasses.asdict(jeng.matcher_config)
+            == dataclasses.asdict(teng.matcher_config))
     assert st.min_object_size == jeng.min_object_size
     assert st.morph_segments == teng.state.morph_segments
     assert st.roi == teng.roi == jeng.roi
@@ -136,8 +178,9 @@ def test_engine_cuda_device_raises_without_cuda():
 
 
 def test_engine_refuses_unported_configs():
-    with pytest.raises(NotImplementedError):
-        Engine(_cfg().replace(matcher=MatcherConfig(kind="sgm")), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(_cfg().replace(matcher=MatcherConfig(kind="sgm", num_paths=5)),
+               device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(_cfg().replace(batch=2), device="cpu")
 
@@ -145,18 +188,20 @@ def test_engine_refuses_unported_configs():
 def test_port_imports_and_runs_with_jax_blocked():
     code = """
 import sys
-for m in ("jax", "jaxlib", "cv2", "yaml"):
+for m in ("jax", "jaxlib", "cv2", "yaml", "rt_depth_map_tpu"):
     sys.modules[m] = None
 import pkgutil, importlib
 import rt_depth_map_tpu_torch
 for m in pkgutil.walk_packages(rt_depth_map_tpu_torch.__path__, "rt_depth_map_tpu_torch."):
     importlib.import_module(m.name)
-from rt_depth_map_tpu.config import EngineConfig, MatcherConfig
-cfg = EngineConfig(width=128, height=64, number_of_disparities=16,
-                   matcher=MatcherConfig(num_disparities=16, speckle_window_size=0))
-res = rt_depth_map_tpu_torch.Engine(cfg, device="cpu").step()
-assert res.disparity.shape == (64, 128)
-loaded = [k for k, v in sys.modules.items() if v is not None and k.split(".")[0] in ("jax", "jaxlib")]
+from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
+for kind in ("bm", "sgm"):
+    cfg = EngineConfig(width=128, height=64, number_of_disparities=16,
+                       matcher=MatcherConfig(kind=kind, num_disparities=16))
+    res = rt_depth_map_tpu_torch.Engine(cfg, device="cpu").step()
+    assert res.disparity.shape == (64, 128)
+loaded = [k for k, v in sys.modules.items()
+          if v is not None and k.split(".")[0] in ("jax", "jaxlib", "rt_depth_map_tpu")]
 assert not loaded, loaded
 print("ok")
 """
