@@ -24,14 +24,17 @@
 extern "C" int rtdm_sgm_horiz(const void* Ct, int c_bytes, void* Sh, int H,
                               int W1, int D, int p1, int p2, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const SgmWtaOut none = {nullptr, nullptr, nullptr, nullptr, 0};
   int32_t* S = (int32_t*)Sh;
-  cudaError_t err = sgm_launch<SGM_WRITE>(Ct, c_bytes, nullptr, S, H, W1, D,
-                                          true, p1, p2, 0, 1, none, s);
-  if (err != cudaSuccess) return (int)err;
-  err = sgm_launch<SGM_ADD>(Ct, c_bytes, S, S, H, W1, D, true, p1, p2, 0, -1,
-                            none, s);
-  return (int)err;
+  return (int)sgm_by_ctype(c_bytes, [&](auto tag) {
+    using CT = decltype(tag);
+    const CT* C = (const CT*)Ct;
+    cudaError_t err = sgm_launch<SGM_WRITE>(C, (const int32_t*)nullptr, S, H,
+                                            W1, D, true, p1, p2, 0, 1,
+                                            SGM_NO_WTA, s);
+    if (err != cudaSuccess) return err;
+    return sgm_launch<SGM_ADD>(C, (const int32_t*)S, S, H, W1, D, true, p1,
+                               p2, 0, -1, SGM_NO_WTA, s);
+  });
 }
 
 extern "C" const char* rtdm_error_string(int err) {

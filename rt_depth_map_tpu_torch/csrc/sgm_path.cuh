@@ -1,8 +1,9 @@
-// One SGM path direction over the (H, W1, D) cost volume: a warp per
+// One SGM path direction over a D-contiguous cost volume: a warp per
 // scanline, D spread over the 32 lanes (the design of arXiv 1610.04121).
 //
-// Shared by sgm_horiz.cu (K4) and sgm_vert_wta.cu (K5). The recurrence is
-// that of rt_depth_map_tpu/ops/sgbm.py _sgm_step / _aggregate_dir:
+// Shared by sgm_horiz.cu (K4), sgm_vert_wta.cu (K5) and sgm_hdw.cu (K9a-K9d,
+// K11). The recurrence is that of rt_depth_map_tpu/ops/sgbm.py _sgm_step /
+// _aggregate_dir:
 //
 //   L(p, d) = C(p, d) + min(Lp(d), Lp(d-1) + P1, Lp(d+1) + P1, minLp + P2)
 //             - (minLp + P2)
@@ -10,7 +11,8 @@
 // where Lp is the previous pixel's L along the path (all zero before the
 // first pixel of a scanline, including scanlines that enter from a side
 // column), minLp its minimum over d, and Lp(-1) = Lp(D) = MAX_COST. L, the
-// running sums and minS can be negative; every value is held in int32.
+// running sums and minS can be negative; every value is held in int32 in
+// registers, whatever the element types of the volumes in memory.
 //
 // A pixel (y, x) follows (y - dy, x - dx) on the path of direction
 // (dy, dx). A scanline starts at each pixel whose predecessor lies outside
@@ -22,8 +24,7 @@
 //
 // The volumes hold each pixel's D-vector contiguously; pixel (y, x) starts
 // at element y * sy + x * sx: sy = W1 * D, sx = D for the row-major
-// (H, W1, D) layout of K5, sy = D, sx = H * D for the x-major (W1, H, D)
-// layout of K4.
+// (H, W1, D) layout, sy = D, sx = H * D for the x-major (W1, H, D) layout.
 //
 // Modes (what a step does with L):
 //   SGM_WRITE   S_out(p) = L                   (first direction)
@@ -31,6 +32,9 @@
 //   SGM_WTA     S = S_in(p) + L is the pixel's total; the warp writes the
 //               winner-take-all outputs best, minS, dval and uniq
 //               (rt_depth_map_tpu/ops/sgbm.py wta_uniq_subpix)
+// C, S_in and S_out each have their own element type (CT, SI, SO: int16 or
+// int32); a sum is stored in SO by truncation, so the caller guarantees
+// that it fits.
 //
 // The loads of the next SGM_PF pixels are issued before the current
 // pixel's step, so a warp keeps several rows of memory requests in flight
@@ -95,9 +99,9 @@ __host__ __device__ inline int sgm_num_lines(int H, int W1, int dy, int dx) {
   return W1 + H - 1;
 }
 
-template <typename CT, int K, int MODE>
+template <typename CT, typename SI, typename SO, int K, int MODE>
 __global__ void __launch_bounds__(128)
-sgm_path_kernel(const CT* __restrict__ C, const int32_t* S_in, int32_t* S_out,
+sgm_path_kernel(const CT* __restrict__ C, const SI* S_in, SO* S_out,
                 int H, int W1, int D, long long sy, long long sx, int p1,
                 int p2, int dy, int dx, SgmWtaOut wta) {
   const int lane = threadIdx.x & 31;
@@ -124,7 +128,7 @@ sgm_path_kernel(const CT* __restrict__ C, const int32_t* S_in, int32_t* S_out,
       if (j < len && ok[k]) {
         const long long o = base + j * step + k;
         cr[j][k] = (int)__ldg(C + o);
-        if (MODE != SGM_WRITE) sr[j][k] = S_in[o];
+        if (MODE != SGM_WRITE) sr[j][k] = (int)S_in[o];
       }
     }
   }
@@ -151,7 +155,7 @@ sgm_path_kernel(const CT* __restrict__ C, const int32_t* S_in, int32_t* S_out,
             if (ok[k]) {
               const long long o = base + (long long)(s + SGM_PF) * step + k;
               cr[j][k] = (int)__ldg(C + o);
-              if (MODE != SGM_WRITE) sr[j][k] = S_in[o];
+              if (MODE != SGM_WRITE) sr[j][k] = (int)S_in[o];
             }
           }
         }
@@ -183,7 +187,8 @@ sgm_path_kernel(const CT* __restrict__ C, const int32_t* S_in, int32_t* S_out,
         if (MODE == SGM_WRITE || MODE == SGM_ADD) {
 #pragma unroll
           for (int k = 0; k < K; ++k)
-            if (ok[k]) S_out[o + k] = (MODE == SGM_ADD ? sv[k] : 0) + L[k];
+            if (ok[k])
+              S_out[o + k] = (SO)((MODE == SGM_ADD ? sv[k] : 0) + L[k]);
         } else {
           // winner-take-all over the pixel's total S = S_in + L: ties to
           // the smallest d, uniqueness over |d - best| > 1, parabolic
@@ -237,42 +242,47 @@ sgm_path_kernel(const CT* __restrict__ C, const int32_t* S_in, int32_t* S_out,
 }
 
 // Launch one direction; K = disparities per lane (D <= 32 * K).
-template <typename CT, int MODE>
-static cudaError_t sgm_launch_k(const CT* C, const int32_t* S_in,
-                                int32_t* S_out, int H, int W1, int D,
-                                long long sy, long long sx, int p1, int p2,
-                                int dy, int dx, SgmWtaOut wta,
+template <typename CT, typename SI, typename SO, int MODE>
+static cudaError_t sgm_launch_k(const CT* C, const SI* S_in, SO* S_out, int H,
+                                int W1, int D, long long sy, long long sx,
+                                int p1, int p2, int dy, int dx, SgmWtaOut wta,
                                 cudaStream_t stream) {
   const int lines = sgm_num_lines(H, W1, dy, dx);
   const int warps = 4;
   const dim3 grid((lines + warps - 1) / warps);
   const dim3 block(32 * warps);
   if (D <= 32)
-    sgm_path_kernel<CT, 1, MODE><<<grid, block, 0, stream>>>(
+    sgm_path_kernel<CT, SI, SO, 1, MODE><<<grid, block, 0, stream>>>(
         C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
   else if (D <= 64)
-    sgm_path_kernel<CT, 2, MODE><<<grid, block, 0, stream>>>(
+    sgm_path_kernel<CT, SI, SO, 2, MODE><<<grid, block, 0, stream>>>(
         C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
   else if (D <= 128)
-    sgm_path_kernel<CT, 4, MODE><<<grid, block, 0, stream>>>(
+    sgm_path_kernel<CT, SI, SO, 4, MODE><<<grid, block, 0, stream>>>(
         C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
   else
-    sgm_path_kernel<CT, 8, MODE><<<grid, block, 0, stream>>>(
+    sgm_path_kernel<CT, SI, SO, 8, MODE><<<grid, block, 0, stream>>>(
         C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
   return cudaGetLastError();
 }
 
 // x_major: the volumes are (W1, H, D) instead of (H, W1, D).
-template <int MODE>
-static cudaError_t sgm_launch(const void* C, int c_bytes, const int32_t* S_in,
-                              int32_t* S_out, int H, int W1, int D,
-                              bool x_major, int p1, int p2, int dy, int dx,
-                              SgmWtaOut wta, cudaStream_t stream) {
+template <int MODE, typename CT, typename SI, typename SO>
+static cudaError_t sgm_launch(const CT* C, const SI* S_in, SO* S_out, int H,
+                              int W1, int D, bool x_major, int p1, int p2,
+                              int dy, int dx, SgmWtaOut wta,
+                              cudaStream_t stream) {
   const long long sy = x_major ? D : (long long)W1 * D;
   const long long sx = x_major ? (long long)H * D : D;
-  if (c_bytes == 2)
-    return sgm_launch_k<int16_t, MODE>((const int16_t*)C, S_in, S_out, H, W1,
-                                       D, sy, sx, p1, p2, dy, dx, wta, stream);
-  return sgm_launch_k<int32_t, MODE>((const int32_t*)C, S_in, S_out, H, W1, D,
-                                     sy, sx, p1, p2, dy, dx, wta, stream);
+  return sgm_launch_k<CT, SI, SO, MODE>(C, S_in, S_out, H, W1, D, sy, sx, p1,
+                                        p2, dy, dx, wta, stream);
 }
+
+// f(CT{}) with CT the cost volume's element type: int16 (c_bytes 2) or int32.
+template <typename F>
+static cudaError_t sgm_by_ctype(int c_bytes, F f) {
+  if (c_bytes == 2) return f(int16_t{});
+  return f(int32_t{});
+}
+
+static const SgmWtaOut SGM_NO_WTA = {nullptr, nullptr, nullptr, nullptr, 0};

@@ -30,21 +30,23 @@ extern "C" int rtdm_sgm_vert_wta(const void* C, int c_bytes, const void* Sh,
                                  int uniqueness_ratio, void* best, void* minS,
                                  void* dval, void* uniq, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const SgmWtaOut none = {nullptr, nullptr, nullptr, nullptr, 0};
   const SgmWtaOut out = {(int32_t*)best, (int32_t*)minS, (int32_t*)dval,
                          (int32_t*)uniq, uniqueness_ratio};
   int32_t* Sv = (int32_t*)S;
   static const int dirs[5][2] = {{1, 0}, {1, 1}, {1, -1}, {-1, 0}, {-1, 1}};
-  cudaError_t err = cudaSuccess;
-  for (int i = 0; i < 5 && err == cudaSuccess; ++i) {
-    const int32_t* src = i == 0 ? (const int32_t*)Sh : Sv;
-    err = sgm_launch<SGM_ADD>(C, c_bytes, src, Sv, H, W1, D, false, p1, p2,
-                              dirs[i][0], dirs[i][1], none, s);
-  }
-  if (err != cudaSuccess) return (int)err;
-  err = sgm_launch<SGM_WTA>(C, c_bytes, Sv, nullptr, H, W1, D, false, p1, p2,
-                            -1, -1, out, s);
-  return (int)err;
+  return (int)sgm_by_ctype(c_bytes, [&](auto tag) {
+    using CT = decltype(tag);
+    const CT* Cv = (const CT*)C;
+    cudaError_t err = cudaSuccess;
+    for (int i = 0; i < 5 && err == cudaSuccess; ++i) {
+      const int32_t* src = i == 0 ? (const int32_t*)Sh : Sv;
+      err = sgm_launch<SGM_ADD>(Cv, src, Sv, H, W1, D, false, p1, p2,
+                                dirs[i][0], dirs[i][1], SGM_NO_WTA, s);
+    }
+    if (err != cudaSuccess) return err;
+    return sgm_launch<SGM_WTA>(Cv, (const int32_t*)Sv, (int32_t*)nullptr, H, W1,
+                               D, false, p1, p2, -1, -1, out, s);
+  });
 }
 
 extern "C" const char* rtdm_error_string(int err) {

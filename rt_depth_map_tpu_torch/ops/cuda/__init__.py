@@ -16,11 +16,16 @@ from rt_depth_map_tpu_torch.ops.cuda.histogram import (  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.remap import remap_u8  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
+    sgm_final_wta,
+    sgm_horiz_pass,
+    sgm_vert_pass,
+)
 from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import vol_transpose  # noqa: F401
 
-#: (wrapper, csrc file, TPU kernel it replaces) for every kernel of the port
+#: (wrapper, csrc file, TPU kernels it replaces) for every kernel of the port
 KERNELS = (
     (remap_u8, "rt_depth_map_tpu_torch/csrc/remap.cu",
      "rt_depth_map_tpu/ops/pallas/remap_plan.py:291"),
@@ -38,6 +43,14 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:243"),
     (sgm_vert_wta, "rt_depth_map_tpu_torch/csrc/sgm_vert_wta.cu",
      "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:542"),
+    (sgm_horiz_pass, "rt_depth_map_tpu_torch/csrc/sgm_hdw.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_hdw.py:461, "
+     "rt_depth_map_tpu/ops/pallas/sgm_hdw.py:524"),
+    (sgm_vert_pass, "rt_depth_map_tpu_torch/csrc/sgm_hdw.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_hdw.py:573, "
+     "rt_depth_map_tpu/ops/pallas/sgm_scan.py:131"),
+    (sgm_final_wta, "rt_depth_map_tpu_torch/csrc/sgm_hdw.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_hdw.py:621"),
     (label_histogram_banded, "rt_depth_map_tpu_torch/csrc/histogram.cu",
      "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
     (label_histogram, "rt_depth_map_tpu_torch/csrc/histogram.cu",

@@ -8,8 +8,8 @@ design of arXiv 1610.04121). The kernel is bound by each row's serial chain
 and by device memory bytes.
 
 Also holds the plain SGM recurrence (`sgm_step`, `aggregate_dir`) of
-`rt_depth_map_tpu/ops/sgbm.py`, which K5's plain version and `ops/sgbm.py`
-`aggregate_cost` reuse.
+`rt_depth_map_tpu/ops/sgbm.py`, which the plain versions of K5 and of the
+chained passes (`sgm_hdw.py`) and `ops/sgbm.py` `aggregate_cost` reuse.
 
 `sgm_horiz` launches the kernel for CUDA tensors and runs `sgm_horiz_plain`
 for CPU tensors; any other device raises.

@@ -1,18 +1,26 @@
-"""Semi-global matching (cv::StereoSGBM parity), 8 paths.
+"""Semi-global matching (cv::StereoSGBM parity), 8, 5 or 4 paths.
 
 Port of `rt_depth_map_tpu/ops/sgbm.py` `stereo_sgbm` for min_disparity 0
 at strict shapes (the TPU's pad-to-kernel-grid route is not needed on the
-GPU):
+GPU). After the elementwise plane preprocessing and K3's cost volume
+(H, W1, D), the aggregation takes the reference's route for the shape
+(`ops/sgbm.py:529-532, 585-612`):
 
-  K3 cost volume (H, W1, D) -> K12 to x-major (W1, H, D) -> K4 horizontal
-  paths Sh -> K12 back to (H, W1, D) -> K5 six vertical and diagonal paths
-  + winner-take-all, uniqueness, subpixel -> the inline left-right check on
-  K6 -> the speckle filter (K2 + K7 + K2).
+  bidir, 8 paths with W1 % 8 == 0 and H % 16 == 0: K12 to x-major
+      (W1, H, D) -> K4 horizontal paths Sh -> K12 back to (H, W1, D) -> K5
+      six vertical and diagonal paths + winner-take-all;
+  chained, 8 paths otherwise: K9a left-to-right -> K9a right-to-left + that
+      partial -> K9c the three top-down paths + partial -> K9d the three
+      bottom-up paths + partial, winner-take-all;
+  5 paths (cv2 MODE_SGBM): K9a left-to-right -> K9a right-to-left +
+      partial -> K9d the three top-down paths + partial, winner-take-all;
+  4 paths: K9a left-to-right -> K9d top-down + partial, winner-take-all;
 
-Every volume keeps D contiguous; the transposes swap the two pixel axes, as
-the TPU's K12 turns (H, D, W1) into (W1, D, H) and back around its K4.
-`num_paths` 4 and 5 (cv2 MODE_SGBM and the causal-only variant) are not
-ported yet (ROADMAP.md, queue item 2).
+then the inline left-right check on K6 and the speckle filter (K2 + K7 +
+K2). Every volume keeps D contiguous. The bidir route's transposes swap the
+two pixel axes, as the TPU's K12 turns (H, D, W1) into (W1, D, H) and back
+around its K4; the chained route scans the row-major volume directly (the
+TPU transposes there only to put D on its sublanes).
 
 `stereo_sgbm` and `Engine.frame_program` take an optional `mark(name)`
 callback, called after each stage (the stage profile of `chip_smoke.py`).
@@ -34,13 +42,21 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (  # noqa: F401
     sgm_cost_volume_plain,
     volume_dtype,
 )
+from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (
+    partials_fit_int16,
+    sgm_final_wta,
+    sgm_final_wta_plain,
+    sgm_horiz_pass,
+    sgm_horiz_pass_plain,
+    sgm_vert_pass,
+    sgm_vert_pass_plain,
+)
 from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import (
     aggregate_dir,
     sgm_horiz,
     sgm_horiz_plain,
 )
 from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (  # noqa: F401
-    VERT_DIRS,
     sgm_vert_wta,
     sgm_vert_wta_plain,
     wta_uniq_subpix,
@@ -76,12 +92,29 @@ def sgbm_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int,
                 volume_dtype(block_size, pre_filter_cap))
 
 
-def aggregate_cost(C: torch.Tensor, p1: int, p2: int) -> torch.Tensor:
-    """(H, W1, D) int32 sum of the 8 path directions (ops/sgbm.py
-    `aggregate_cost` with num_paths 8): the plain versions of K4 and K5's
-    recurrence together."""
-    S = aggregate_dir(C, p1, p2, 0, 1) + aggregate_dir(C, p1, p2, 0, -1)
-    for dy, dx in VERT_DIRS:
+# the reference's direction lists (ops/sgbm.py:234-235), a pixel (y, x)
+# following (y - dy, x - dx)
+DIRS_PASS1 = ((0, 1), (1, 1), (1, 0), (1, -1))
+DIRS_PASS2 = ((0, -1), (-1, -1), (-1, 0), (-1, 1))
+
+
+def path_count(num_paths: int) -> int:
+    """The path count the reference runs for `num_paths` (ops/sgbm.py:621)."""
+    return 8 if num_paths >= 8 else (5 if num_paths == 5 else 4)
+
+
+def aggregate_cost(C: torch.Tensor, p1: int, p2: int,
+                   num_paths: int) -> torch.Tensor:
+    """(H, W1, D) int32 sum of the path directions (ops/sgbm.py
+    `aggregate_cost`): the four causal ones, plus the right-to-left
+    horizontal for 5 (cv2 MODE_SGBM), or the other four for 8 (MODE_HH)."""
+    dirs = DIRS_PASS1
+    if num_paths == 5:
+        dirs += DIRS_PASS2[:1]
+    elif num_paths >= 8:
+        dirs += DIRS_PASS2
+    S = torch.zeros(C.shape, dtype=torch.int32, device=C.device)
+    for dy, dx in dirs:
         S += aggregate_dir(C, p1, p2, dy, dx)
     return S
 
@@ -152,22 +185,66 @@ def check_config(cfg: MatcherConfig, W: int) -> None:
     """Raise for what the port's SGM does not run at image width W."""
     if cfg.min_disparity != 0:
         raise NotImplementedError("the port's SGM supports min_disparity 0 only")
-    if cfg.num_paths < 8:
-        raise NotImplementedError(
-            f"num_paths={cfg.num_paths} (the TPU's K9a/K9d passes) is not "
-            "ported yet; see ROADMAP.md, queue item 2")
     if not 0 < cfg.num_disparities < W:
         raise ValueError(f"num_disparities={cfg.num_disparities} needs "
                          f"0 < D < W={W}")
+
+
+def uses_bidir(num_paths: int, H: int, W: int, D: int) -> bool:
+    """The fused bidirectional route's gate (ops/sgbm.py:529-532)."""
+    return path_count(num_paths) == 8 and (W - D) % 8 == 0 and H % 16 == 0
+
+
+def aggregate_bidir(C: torch.Tensor, p1: int, p2: int, uniqueness_ratio: int,
+                    plain: bool = False, mark: Callable[[str], None] = _no_mark):
+    """(best, minS, dval, uniq) of the 8 paths over the (H, W1, D) volume C
+    through the fused kernels: K12, K4, K12, K5."""
+    Ct = swap_pixel_axes(C, plain)
+    mark("K12 cost volume to x-major")
+    Sh_t = (sgm_horiz_plain if plain else sgm_horiz)(Ct, p1, p2)
+    del Ct
+    mark("K4 horizontal paths")
+    Sh = swap_pixel_axes(Sh_t, plain)
+    del Sh_t
+    mark("K12 horizontal sum to row-major")
+    vert = sgm_vert_wta_plain if plain else sgm_vert_wta
+    out = vert(C, Sh, p1, p2, uniqueness_ratio)
+    mark("K5 vertical + diagonal paths, WTA")
+    return out
+
+
+def aggregate_chained(C: torch.Tensor, paths: int, p1: int, p2: int,
+                      uniqueness_ratio: int, plain: bool = False,
+                      mark: Callable[[str], None] = _no_mark):
+    """(best, minS, dval, uniq) of `paths` (8, 5 or 4) paths over the
+    (H, W1, D) volume C through the chained passes, one direction set each:
+    K9a (once, or twice from 5 paths), K9c for 8 paths, K9d."""
+    horiz = sgm_horiz_pass_plain if plain else sgm_horiz_pass
+    final = sgm_final_wta_plain if plain else sgm_final_wta
+    if C.dtype == torch.int16 and not partials_fit_int16(p1, p2):
+        C = C.to(torch.int32)  # the partials would overflow int16
+    S = horiz(C, p1, p2)
+    mark(f"K9a left-to-right ({paths}-path)")
+    if paths >= 5:
+        S = horiz(C, p1, p2, reverse=True, partial=S)
+        mark(f"K9a right-to-left + partial ({paths}-path)")
+    if paths == 8:
+        S = (sgm_vert_pass_plain if plain else sgm_vert_pass)(C, p1, p2,
+                                                              partial=S)
+        mark("K9c top-down paths + partial (8-path)")
+    out = final(C, S, p1, p2, uniqueness_ratio, reverse=paths == 8)
+    mark(f"K9d {'bottom-up' if paths == 8 else 'top-down'} paths + partial, "
+         f"WTA ({paths}-path)")
+    return out
 
 
 def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
                 plain: bool = False,
                 mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
     """int16 x16 disparity map of (H, W) uint8 rectified gray planes,
-    cv::StereoSGBM MODE_HH parity. plain=True runs the kernels' plain
-    versions (the reference for the card's kernels); mark(name), when
-    given, is called after each stage."""
+    cv::StereoSGBM parity (MODE_HH for 8 paths, MODE_SGBM for 5).
+    plain=True runs the kernels' plain versions (the reference for the
+    card's kernels); mark(name), when given, is called after each stage."""
     mark = mark or _no_mark
     H, W = left.shape
     check_config(cfg, W)
@@ -180,18 +257,14 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
                                         cfg.pre_filter_cap, plain=plain,
                                         mark=mark)
     mark("K3 cost volume")
-    Ct = swap_pixel_axes(C, plain)
-    mark("K12 cost volume to x-major")
-    Sh_t = (sgm_horiz_plain if plain else sgm_horiz)(Ct, p1, p2)
-    del Ct
-    mark("K4 horizontal paths")
-    Sh = swap_pixel_axes(Sh_t, plain)
-    del Sh_t
-    mark("K12 horizontal sum to row-major")
-    vert = sgm_vert_wta_plain if plain else sgm_vert_wta
-    best, minS, dval, uniq = vert(C, Sh, p1, p2, cfg.uniqueness_ratio)
-    del C, Sh
-    mark("K5 vertical + diagonal paths, WTA")
+    if uses_bidir(cfg.num_paths, H, W, D):
+        best, minS, dval, uniq = aggregate_bidir(C, p1, p2, cfg.uniqueness_ratio,
+                                                 plain, mark)
+    else:
+        best, minS, dval, uniq = aggregate_chained(
+            C, path_count(cfg.num_paths), p1, p2, cfg.uniqueness_ratio, plain,
+            mark)
+    del C
 
     disp = torch.full((H, W), invalid, dtype=torch.int16, device=left.device)
     disp[:, minX1: minX1 + width1] = torch.where(uniq != 0, invalid, dval).to(torch.int16)

@@ -10,16 +10,17 @@ with an optional prefetch thread. Device side, one method per frame:
 
 The matcher is the configured kind, as in the reference's frame program:
 
-  sgm: 8-path SGM (K3 cost volume, K12 transposes around K4 horizontal
-       paths, K5 vertical and diagonal paths + winner-take-all, K6 LR
-       check) over the whole frame;
+  sgm: SGM with 8, 5 or 4 paths over the whole frame (K3 cost volume, then
+       the route `ops/sgbm.py` picks for the shape: K12 transposes around
+       K4 horizontal paths and K5 vertical and diagonal paths +
+       winner-take-all, or the chained passes K9a, K9c, K9d; K6 LR check);
   bm:  block matching inside the boxes' ROI (K8 cost + winner, K6 LR check);
 
 each followed by the speckle filter (K2 labels, K7 counts, K2 decision).
 
 PyTorch runs eagerly, so there is no compile step; the CUDA kernels build at
 their first launch. Not ported yet: batch > 1, run_preloaded, the WLS post
-filter, show_disparity_value, and SGM's num_paths 4 and 5.
+filter and show_disparity_value.
 """
 
 from __future__ import annotations
@@ -116,7 +117,8 @@ class Engine:
             raise ValueError(f"unsupported device {device}")
         if cfg.batch != 1 or cfg.enable_post_filter or cfg.show_disparity_value:
             raise NotImplementedError(
-                "the port runs batch=1 without WLS or show_disparity_value")
+                "the port runs batch=1 without WLS or show_disparity_value; "
+                "see ROADMAP.md")
         self.cfg = cfg
         self.device = device
         self.source = source if source is not None else make_source(cfg)

@@ -1,6 +1,7 @@
 """Port parity: the single-frame Engine of rt_depth_map_tpu_torch against the
 JAX Engine, frame by frame, on a non-identity rectification: the BM matcher
-with the speckle filter off, and 8-path SGM with the speckle filter on.
+with the speckle filter off, and 8- and 5-path SGM with the speckle filter
+on.
 Integer fields are exact; depth_cm and mean_z agree to rtol 1e-5 (float32
 sums in another order). The port's configs build the JAX ones field by
 field."""
@@ -40,10 +41,10 @@ def _cfg():
     return EngineConfig(width=W, height=H, number_of_disparities=D, matcher=mcfg)
 
 
-def _sgm_cfg():
-    """8-path SGM at the flagship's matcher settings, speckle filter on."""
+def _sgm_cfg(num_paths=8):
+    """SGM at the flagship's matcher settings, speckle filter on."""
     mcfg = MatcherConfig(kind="sgm", num_disparities=D, block_size=5,
-                         num_paths=8, pre_filter_cap=0)
+                         num_paths=num_paths, pre_filter_cap=0)
     return EngineConfig(width=W, height=H, number_of_disparities=D, matcher=mcfg)
 
 
@@ -122,21 +123,33 @@ def test_engine_run_with_prefetch_matches_jax():
     _assert_same(jeng.step(), teng.step(), "step")
 
 
-def test_engine_sgm_frames_match_jax():
-    """The flagship frame program (8-path SGM, speckle filter on) at a small
-    size: the port's frames equal the JAX engine's."""
+def _check_sgm_engine(num_paths):
     rect = _rectification()
-    jeng = JEngine(jax_config(_sgm_cfg()), rectification=rect, source=_jsource())
-    teng = Engine(_sgm_cfg(), rectification=rect, source=_source(), device="cpu")
+    jeng = JEngine(jax_config(_sgm_cfg(num_paths)), rectification=rect,
+                   source=_jsource())
+    teng = Engine(_sgm_cfg(num_paths), rectification=rect, source=_source(),
+                  device="cpu")
     assert dataclasses.asdict(teng.matcher_config) == dataclasses.asdict(
         jeng.matcher_config)
     src = _source()
     left, right, _, _ = src.render(1)
     ref = jeng.process_pair(left, right)
     got = teng.process_pair(left, right)
-    _assert_same(ref, got, "sgm frame")
+    _assert_same(ref, got, f"sgm-{num_paths} frame")
     assert got.has_objects and (got.count > 0).any()
     assert (got.disparity != -16).mean() > 0.3
+
+
+def test_engine_sgm_frames_match_jax():
+    """The flagship frame program (8-path SGM, speckle filter on) at a small
+    size: the port's frames equal the JAX engine's. The ROI crop leaves 90
+    rows, so the port takes its chained 8-path route."""
+    _check_sgm_engine(8)
+
+
+def test_engine_sgm5_frames_match_jax():
+    """cv2 MODE_SGBM (5 paths) through the same frame program."""
+    _check_sgm_engine(5)
 
 
 def test_engine_runs_plain_versions_on_cpu(engines):
@@ -179,8 +192,7 @@ def test_engine_cuda_device_raises_without_cuda():
 
 def test_engine_refuses_unported_configs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(_cfg().replace(matcher=MatcherConfig(kind="sgm", num_paths=5)),
-               device="cpu")
+        Engine(_cfg().replace(enable_post_filter=True), device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(_cfg().replace(batch=2), device="cpu")
 

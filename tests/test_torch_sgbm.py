@@ -1,8 +1,9 @@
 """Port parity: the SGM matcher. The elementwise preprocessing, the cost
-volume and the whole `stereo_sgbm` against the JAX XLA path
-(rt_depth_map_tpu/ops/sgbm.py); the plain K3, K4 and K5 against the Pallas
-kernels themselves in interpret mode, as tests/test_sgm_bidir.py runs them.
-Integer, bit-exact."""
+volume, the path sums and the whole `stereo_sgbm` (8, 5 and 4 paths, on
+both 8-path routes) against the JAX XLA path (rt_depth_map_tpu/ops/sgbm.py);
+the plain K3, K4 and K5 against the Pallas kernels themselves in interpret
+mode, as tests/test_sgm_bidir.py runs them (the chained passes K9a-K9d and
+K11: tests/test_torch_sgm_hdw.py). Integer, bit-exact."""
 
 import dataclasses
 
@@ -123,7 +124,7 @@ def test_aggregate_and_wta_match_xla():
     H, W1, D = 9, 24, 16
     C = _cost(4, H, W1, D, torch.int32)
     S_ref = j_aggregate_cost(jnp.asarray(C.numpy()), 600, 2400, 8)
-    S = tsg.aggregate_cost(C, 600, 2400)
+    S = tsg.aggregate_cost(C, 600, 2400, 8)
     np.testing.assert_array_equal(S.numpy(), np.asarray(S_ref))
     for name, g, r in zip(("best", "minS", "dval", "uniq"),
                           tsg.wta_uniq_subpix(S, 10),
@@ -132,7 +133,16 @@ def test_aggregate_and_wta_match_xla():
                                       err_msg=name)
 
 
-# (H, W, D): the second misses both the TPU's H % 16 and W1 % 128 grids
+@pytest.mark.parametrize("num_paths", [4, 5])
+def test_aggregate_cost_path_counts_match_xla(num_paths):
+    C = _cost(14, 7, 20, 16, torch.int32)
+    S_ref = j_aggregate_cost(jnp.asarray(C.numpy()), 600, 2400, num_paths)
+    np.testing.assert_array_equal(tsg.aggregate_cost(C, 600, 2400, num_paths).numpy(),
+                                  np.asarray(S_ref))
+
+
+# (H, W, D): the second misses both the TPU's H % 16 and W1 % 128 grids, so
+# the port takes its chained 8-path route there
 SHAPES = [(32, 192, 64), (37, 200, 48)]
 
 
@@ -156,8 +166,10 @@ def test_stereo_sgbm_matches_jax(H, W, D):
 def test_stereo_sgbm_lr_and_uniqueness_variants_match_jax():
     H, W, D = 24, 150, 32
     left, right = stereo_pair(9, H, W, 7)
+    # the last: 5 * P2 overflows int16, so the chained route widens the volume
     for kw in (dict(disp12_max_diff=-1, speckle_window_size=0),
-               dict(uniqueness_ratio=0, disp12_max_diff=3, p1=100, p2=50)):
+               dict(uniqueness_ratio=0, disp12_max_diff=3, p1=100, p2=50),
+               dict(num_paths=5, p2=8000)):
         cfg = MatcherConfig(kind="sgm", num_disparities=D, block_size=3,
                             pre_filter_cap=31, **kw)
         ref = np.asarray(j_stereo_sgbm(jnp.asarray(left), jnp.asarray(right),
@@ -166,13 +178,21 @@ def test_stereo_sgbm_lr_and_uniqueness_variants_match_jax():
         np.testing.assert_array_equal(got.numpy(), ref, err_msg=str(kw))
 
 
-@pytest.mark.parametrize("num_paths", [4, 5])
-def test_stereo_sgbm_refuses_unported_path_counts(num_paths):
-    left, right = stereo_pair(1, 16, 64, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsg.stereo_sgbm(t(left), t(right),
-                        MatcherConfig(kind="sgm", num_disparities=16,
-                                      num_paths=num_paths))
+@pytest.mark.parametrize("num_paths", [5, 4])
+def test_stereo_sgbm_path_counts_match_jax(num_paths):
+    """cv2 MODE_SGBM (5) and the causal 4 paths, with the MatcherConfig's
+    default checks, at a shape where the bidir gate's shape test holds
+    (test_stereo_sgbm_matches_jax covers the chained 8 paths)."""
+    H, W, D = 32, 160, 32
+    left, right = stereo_pair(40 + num_paths, H, W, D // 3)
+    cfg = MatcherConfig(kind="sgm", num_disparities=D, block_size=5,
+                        pre_filter_cap=0, num_paths=num_paths)
+    assert tsg.uses_bidir(num_paths, H, W, D) is False
+    ref = np.asarray(j_stereo_sgbm(jnp.asarray(left), jnp.asarray(right),
+                                   jax_config(cfg, backend="xla")))
+    got = tsg.stereo_sgbm(t(left), t(right), cfg)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (ref != -16).sum() > H * (W - D) // 4
 
 
 def test_kernel_wrappers_run_plain_on_cpu():
