@@ -16,16 +16,21 @@ the script exits non-zero:
      build/torch_kernels/;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the frame programs, exact equality, and the median time
-     of both (CUDA events): the bidir SGM kernels (K12, K4, K5) at the
-     flagship shape and at an odd 700x1000, D=64 one (K12 also in the TPU's
-     3-D form); the chained passes (K9a/K9b, K9c/K11, K9d: both senses,
-     with and without a partial, int16 and int32) at the stretch point
-     1920x1080, D=256 and at the odd shape; K3, K6 and K7 at all three; the
-     bidir and chained routes timed on the stretch volume, which must give
-     the same winners; a snake through the speckle path where the 16-sweep
-     cap binds; the BM and SGM matchers against the repo's numpy goldens
-     (cv2.StereoBM and cv2.StereoSGBM parity: MODE_SGBM, the causal 4 paths
-     and MODE_HH on both of its routes);
+     of both (CUDA events): K2 on the frame mask (4 fields, 8-connected),
+     on a snake whose sweep count (read from the device after a
+     synchronise) stops at the 16-sweep cap, and on both speckle calls (1
+     field, 4-connected value edges) at 1280x720 and 1920x1080; the bidir
+     SGM kernels (K12, K4, K5) at the flagship shape and at an odd
+     700x1000, D=64 one (K12 also in the TPU's 3-D form; K5 also at a W1
+     that leaves its last band of columns ragged); the chained passes
+     (K9a/K9b, K9c/K11, K9d: both senses, with and without a partial, int16
+     and int32) at the stretch point 1920x1080, D=256 and at the odd shape;
+     K3, K6 and K7 at all three; the bidir and chained 8-path routes timed
+     on the flagship and stretch volumes, which must give the same winners;
+     a snake through the speckle path where the 16-sweep cap binds; the BM
+     and SGM matchers against the repo's numpy goldens (cv2.StereoBM and
+     cv2.StereoSGBM parity: MODE_SGBM, the causal 4 paths and MODE_HH on
+     both of its routes);
   4. engine, SGM: Engine.run on a synthetic 1280x720 stream through a
      non-identity rectification with the launch counts set to 0 just
      before; every kernel of the path must have launched, and every frame's
@@ -354,8 +359,10 @@ def main() -> int:
     from rt_depth_map_tpu_torch.ops import sgbm as sg
     from rt_depth_map_tpu_torch.ops.cc import (
         CC_MAX_ROUNDS,
+        component_small,
         connected_components_bbox,
         connected_components_scan,
+        value_edges,
     )
     from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
     from rt_depth_map_tpu_torch.ops.cuda import KERNELS, _build
@@ -382,6 +389,7 @@ def main() -> int:
     )
     from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz, sgm_horiz_plain
     from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (
+        band_cols,
         sgm_vert_wta,
         sgm_vert_wta_plain,
     )
@@ -471,22 +479,32 @@ def main() -> int:
               lambda a=args: remap_u8_plain(*a), what,
               bound=(_nbytes(*args), out_b, 16 * out_b))
 
+    def sweeps_run():
+        """The last K2 call's sweep count, a device value: synchronise first."""
+        _sync()
+        return int(seg_min_propagate.last_rounds)
+
+    def cc_bound(n_fields, n_px, sweeps, diag):
+        """K2's bound: fields, mask and edges read once, fields written once;
+        ~8 operations per field value and sweep (hop, row and column
+        run-min, flags), ~4 more with the hop."""
+        return (n_px * (4 * n_fields + 1 + 1), 4 * n_fields * n_px,
+                (12 if diag else 8) * n_fields * n_px * sweeps)
+
     # K2: the frame's filtered mask (4 fields, 8-connected), and a snake on
-    # which the cap binds (~8 operations per field value and sweep: hop,
-    # row and column run-min, flags)
+    # which the cap binds
     frame = sgm_eng.frame_program(left, right, plain=True)
     snake_t = torch.from_numpy(_snake(H, W, H // 8)).to(dev)
     for what, msk in (("frame mask", frame["mask"] != 0), ("snake", snake_t)):
         connected_components_bbox(msk, 8)
-        sweeps = seg_min_propagate.last_rounds
-        n_px = msk.numel()
+        sweeps = sweeps_run()
         check(seg_min_propagate, lambda m=msk: connected_components_bbox(m, 8),
-              lambda m=msk: connected_components_bbox(m, 8, plain=True), what,
-              bound=(n_px * (4 * 4 + 1 + 4), 4 * 4 * n_px, 8 * 4 * n_px * sweeps))
+              lambda m=msk: connected_components_bbox(m, 8, plain=True),
+              f"{what} ({sweeps} sweeps)", bound=cc_bound(4, msk.numel(), sweeps, True))
     full = connected_components_bbox(snake_t, 8, max_rounds=None)[0]
-    full_rounds = seg_min_propagate.last_rounds
+    full_rounds = sweeps_run()
     capped = connected_components_bbox(snake_t, 8)[0]
-    if seg_min_propagate.last_rounds != CC_MAX_ROUNDS or bool((full == capped).all()):
+    if sweeps_run() != CC_MAX_ROUNDS or bool((full == capped).all()):
         raise AssertionError("the round cap did not bind on the snake")
     print(f"phase 3 cc cap: snake stopped at {CC_MAX_ROUNDS} sweeps, its fixed "
           f"point takes {full_rounds}", flush=True)
@@ -616,15 +634,26 @@ def main() -> int:
               bound=(_nbytes(lpl, rpl), _nbytes(C), 21 * n), plain_reps=5)
         if (h, w, d) != STRETCH:
             outs = bidir_checks(C, what)
+            # K5 where the last band of columns is ragged
+            W1 = w - d
+            cols = band_cols(W1, dev)
+            W1r = W1 - 1 if W1 % cols == 0 else W1
+            Cr, Shr = C[:, :W1r].contiguous(), torch.zeros_like(C[:, :W1r], dtype=torch.int32)
+            check(sgm_vert_wta, lambda: sgm_vert_wta(Cr, Shr, p1, p2, ur),
+                  lambda: sgm_vert_wta_plain(Cr, Shr, p1, p2, ur),
+                  f"{h}x{W1r + d} D={d} (W1 {W1r}: bands of {cols}, the last "
+                  f"of {W1r - (W1r - 1) // cols * cols})", timed=False)
+            del Cr, Shr
         if (h, w, d) != flagship:
             outs_c = chained_checks(C, what)
             if (h, w, d) == ODD and _max_abs_err(outs_c, outs) != 0:
                 raise AssertionError(f"{what}: the chained route's winners differ "
                                      f"from the bidir route's")
             outs = outs_c
-        if (h, w, d) == STRETCH:
-            # both 8-path routes on the stretch volume (the port's kernels
-            # take any H; the route gate follows the reference's)
+        if (h, w, d) != ODD:
+            # both 8-path routes on the flagship and stretch volumes (the
+            # port's kernels take any H; the route gate follows the
+            # reference's)
             bid_ms = _time_ms(lambda: sg.aggregate_bidir(C, p1, p2, ur), reps=5)
             chn_ms = _time_ms(lambda: sg.aggregate_chained(C, 8, p1, p2, ur), reps=5)
             if _max_abs_err(sg.aggregate_bidir(C, p1, p2, ur),
@@ -648,7 +677,27 @@ def main() -> int:
                   bound=(_nbytes(d_intW, keyW, *rms), _nbytes(*outs6), 6 * h * w))
             disp = sg.lr_check_sgbm(disp, best, minS, d, w - d, d, m.disp12_max_diff)
         act = disp != -16
+        # K2's two speckle calls (1 field, 4-connected value edges): the
+        # labels, then each root's small/big decision broadcast
+        edges = value_edges(disp, act, m.speckle_range * 16)
+        connected_components_scan(disp, act, m.speckle_range * 16, edges=edges)
+        sweeps = sweeps_run()
+        check(seg_min_propagate,
+              lambda: connected_components_scan(disp, act, m.speckle_range * 16,
+                                                edges=edges),
+              lambda: connected_components_scan(disp, act, m.speckle_range * 16,
+                                                plain=True, edges=edges),
+              f"{what} speckle labels ({sweeps} sweeps)",
+              bound=cc_bound(1, h * w, sweeps, False), plain_reps=5)
         labels = connected_components_scan(disp, act, m.speckle_range * 16)
+        small = component_small(labels, act, edges, m.speckle_window_size)
+        sweeps = sweeps_run()
+        check(seg_min_propagate,
+              lambda: component_small(labels, act, edges, m.speckle_window_size),
+              lambda: component_small(labels, act, edges, m.speckle_window_size,
+                                      plain=True),
+              f"{what} speckle decision broadcast ({sweeps} sweeps, "
+              f"{int(small.sum())} small pixels)", timed=False)
         cnt = label_histogram(labels, act)
         hb = (_nbytes(labels, act), _nbytes(cnt), h * w)
         lib = (lambda lab=labels, a=act: torch.bincount(lab[a], minlength=lab.numel()))

@@ -1,196 +1,431 @@
-// Min-propagation of N int32 fields along allowed neighbour edges, to a fixed
-// point or a round cap.
+// K2: min-propagation of N int32 fields along allowed neighbour edges, to a
+// fixed point or a sweep cap, in one persistent launch per call.
 //
 // Replaces rt_depth_map_tpu/ops/pallas/cc_sweep.py seg_min_propagate_pallas.
 // The semantics are those of the XLA loop of rt_depth_map_tpu/ops/cc.py
 // (connected_components_bbox / connected_components_scan), so that the result
-// also matches under the round cap on a mask that does not converge:
+// also matches under the sweep cap on a mask that does not converge:
 //
 //   sweep = [hop, 8-connectivity only] -> row run-min -> column run-min
 //   trip  = two sweeps; stop when a trip changed nothing or rounds >= cap
 //           (rounds count sweeps, two per trip)
 //
 // hop: every active pixel takes the min over itself and its neighbours across
-// allowed edges, all read from the field before the hop (Jacobi, so it runs
-// from one buffer into the other). Run-min: every pixel takes the min over its
-// run of allowed edges along the row (column): a segmented Hillis-Steele scan
-// forward and backward in shared memory, one block per line, exactly the
-// doubling of ops/cc.py _seg_min_dir.
+// allowed edges, all read from the field before the hop (Jacobi). Run-min:
+// every pixel takes the min over its run of allowed edges along the row
+// (column). Under the cap the labels depend on this order, so it is kept.
 //
 // Edges arrive packed, one byte per pixel: bit 0 (y,x)~(y,x+1), bit 1
 // (y,x)~(y+1,x), bit 2 (y,x)~(y+1,x+1), bit 3 (y,x+1)~(y+1,x).
 //
-// What bounds it on the H100: launches and round trips, not bytes. A trip is
-// 4-6 small launches over a 14.7 MB field set (4 fields at 1280x720), and the
-// host reads one device flag per trip to decide whether to go on. The design
-// keeps each launch a full pass over all fields (grid.y / grid.z = field) and
-// reads the flag once per trip, as the XLA loop tests once per trip. Column
-// lines are read with a stride of W (uncoalesced); a later PR can tile them.
+// What bounds it on the H100: not bytes (four 1280x720 int32 fields are
+// 14.7 MB; both buffers, 29.5 MB, stay in the 50 MB L2) but the serial
+// structure: up to 8 trips of 4 dependent passes each. A loop on the host
+// (launches per pass, a flag copied back and a stream synchronise per trip)
+// left the device idle while the host relaunched. The design:
+//
+// - One cooperative launch per call, sized to the resident blocks. The trip
+//   loop runs on the device, with a grid barrier (an arrival counter and a
+//   generation word: no separate device compilation needed) after each
+//   phase. The entry point never synchronises and never copies to the host;
+//   the sweep count stays in a device word.
+// - Two phases a sweep. Phase 1: a warp per row of a field hops the row from
+//   buffer A (reading rows y-1..y+1 of A) into shared memory, runs the
+//   row's segmented min-scans there and writes the row to buffer B. Phase 2:
+//   a block per tile of 32 columns of a field loads the tile from B into
+//   shared memory (each warp reads 128-byte rows: coalesced), runs the
+//   column scans and writes the tile back to A. Both phases stage the edge
+//   bits they scan beside the values, and load with several rows in flight.
+// - Segmented min-scans in O(L) work: each lane (phase 1) or warp (phase 2)
+//   takes a contiguous run; the runs' aggregates are scanned (warp shuffles,
+//   or a pass of at most 15 steps over shared memory) and each run is fixed
+//   up. A backward scan, then a forward scan over its result, leaves every
+//   pixel the minimum of its run of allowed edges: three passes over a run,
+//   since the backward fix-up also builds the forward aggregate.
+// - Within a phase no thread reads what another thread of the phase writes,
+//   so loads go through L1; the grid barrier's acquire orders them after
+//   the previous phase's stores.
+// - Only what can change is recomputed. Values only fall (A >= B >= the
+//   next A), so a row of A changes in sweep k exactly where sweep k's row
+//   phase or column phase lowers a pixel of it; both phases mark such rows
+//   with k + 1 (in one of two arrays by sweep parity, so that no mark is
+//   overwritten while the row phase reads the other). The row phase also
+//   marks with k + 1 each 32-column tile of B whose values it changed.
+//   Sweep k's row phase (k > 0) recomputes a row only if that row (or, with
+//   the hop, a row next to it) was marked k, and its column phase
+//   recomputes a tile only if it was marked k + 1; every other row of B and
+//   tile of A already holds its value. Marks are sweep numbers, so they
+//   never need a reset.
+// - "Changed": a trip changed something exactly when one of its phases
+//   lowered a pixel. Such a phase of trip t stores t into one device word.
+//   After the trip's last barrier every block reads the word and stops when
+//   it is below t. Only blocks that read t go on to store larger values, so
+//   every block reads the same verdict, and the word never needs a reset.
+//
+// Shared memory bounds the shapes: 16 rows of W + 32 int32 and W edge bytes
+// in phase 1, a 32 x H tile of int32 and edge bytes in phase 2 (W up to
+// ~2700 and H up to ~1400 on the H100); a larger shape is refused and the
+// wrapper raises.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define RTDM_BIG (1 << 30)
+#define CC_BIG (1 << 30)
+#define CC_THREADS 512
+#define CC_WARPS (CC_THREADS / 32)
+#define CC_FULL 0xffffffffu
 
-__global__ void hop_kernel(const int32_t* __restrict__ src,
-                           int32_t* __restrict__ dst,
-                           const uint8_t* __restrict__ active,
-                           const uint8_t* __restrict__ edges, int H, int W,
-                           int* __restrict__ changed) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= W) return;
-  const size_t plane = (size_t)blockIdx.z * H * W;
-  const size_t p = (size_t)y * W + x;
-  const int32_t* f = src + plane;
-  const int32_t v = f[p];
-  int32_t m = v;
-  if (active[p]) {
-    const uint8_t e = edges[p];
-    // an allowed edge joins two active pixels, so a neighbour's value is its
-    // field value (ops/cc.py hop_many reads it through where(active, f, BIG))
-    if (e & 1) m = min(m, f[p + 1]);
-    if (e & 2) m = min(m, f[p + W]);
-    if (e & 4) m = min(m, f[p + W + 1]);
-    if (x > 0) {
-      const uint8_t el = edges[p - 1];
-      if (el & 1) m = min(m, f[p - 1]);
-      if (el & 8) m = min(m, f[p + W - 1]);  // (y,x)~(y+1,x-1)
-    }
-    if (y > 0) {
-      const uint8_t eu = edges[p - W];
-      if (eu & 2) m = min(m, f[p - W]);
-      if (eu & 8) m = min(m, f[p - W + 1]);  // (y-1,x+1)~(y,x)
-      if (x > 0 && (edges[p - W - 1] & 4)) m = min(m, f[p - W - 1]);
-    }
-  }
-  dst[plane + p] = m;
-  if (m < v) *changed = 1;
+struct CcArgs {
+  int32_t* a;             // (N, H, W) fields: in, out, and each sweep's end
+  int32_t* b;             // (N, H, W) scratch: each sweep's middle
+  const uint8_t* active;  // (H, W)
+  const uint8_t* edges;   // (H, W), packed as above
+  int n, h, w, diag, max_rounds;
+  unsigned* bar;          // [0] arrivals, [1] generation
+  unsigned* stamp;        // the last trip (1-based) that changed A
+  int* rounds;            // sweeps run
+  int* row_mark;          // (2, N, H): 1 + a sweep that changed the row of A,
+                          // in [(sweep + 1) & 1]
+  int* tile_mark;         // (N, tiles): 1 + the last sweep that changed the
+                          // tile of B
+};
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
 }
 
-// One block per line (row or column) of one field, in place.
-__global__ void run_min_kernel(int32_t* __restrict__ fields,
-                               const uint8_t* __restrict__ edges, int H, int W,
-                               int along_rows, int* __restrict__ changed) {
-  extern __shared__ int32_t smem[];
-  const int L = along_rows ? W : H;
-  const size_t step = along_rows ? 1 : (size_t)W;
-  const size_t base = along_rows ? (size_t)blockIdx.x * W : blockIdx.x;
-  int32_t* f = fields + (size_t)blockIdx.y * H * W + base;
-  const uint8_t* e = edges + base;
-  const uint8_t bit = along_rows ? 1 : 2;
-
-  int32_t* fm = smem;           // [2][L] forward running min
-  int32_t* bm = fm + 2 * L;     // [2][L] backward running min
-  uint8_t* fs = (uint8_t*)(bm + 2 * L);  // [2][L] forward segment flag
-  uint8_t* bs = fs + 2 * L;              // [2][L] backward segment flag
-
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const int32_t v = f[i * step];
-    fm[i] = v;
-    bm[i] = v;
-    // a segment starts where the edge into the pixel, in scan direction, is
-    // missing
-    fs[i] = !(i > 0 && (e[(i - 1) * step] & bit));
-    bs[i] = !(i + 1 < L && (e[i * step] & bit));
+// Barrier over the whole grid; the cooperative launch guarantees that every
+// block is resident. The last block to arrive resets the counter and moves
+// the generation on; the others wait for the generation to move.
+__device__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned gen = ld_acquire(bar + 1);
+    __threadfence();
+    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (ld_acquire(bar + 1) == gen) __nanosleep(32);
+    }
+    __threadfence();
   }
   __syncthreads();
-  int cur = 0;
-  for (int d = 1; d < L; d *= 2) {
-    const int nxt = cur ^ 1;
-    const int32_t* fmc = fm + cur * L;
-    const int32_t* bmc = bm + cur * L;
-    const uint8_t* fsc = fs + cur * L;
-    const uint8_t* bsc = bs + cur * L;
-    for (int i = threadIdx.x; i < L; i += blockDim.x) {
-      int32_t m = fmc[i];
-      uint8_t s = fsc[i];
-      if (i >= d) {
-        if (!s) m = min(m, fmc[i - d]);
-        s |= fsc[i - d];
-      } else {
-        s = 1;
-      }
-      fm[nxt * L + i] = m;
-      fs[nxt * L + i] = s;
+}
 
-      m = bmc[i];
-      s = bsc[i];
-      if (i + d < L) {
-        if (!s) m = min(m, bmc[i + d]);
-        s |= bsc[i + d];
-      } else {
-        s = 1;
-      }
-      bm[nxt * L + i] = m;
-      bs[nxt * L + i] = s;
-    }
-    __syncthreads();
-    cur = nxt;
-  }
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const int32_t r = min(fm[cur * L + i], bm[cur * L + i]);
-    if (r < f[i * step]) {
-      f[i * step] = r;
-      *changed = 1;
-    }
+// int32 words of a warp's row buffer in phase 1: W + 32 values, then W
+// edge bytes
+__host__ __device__ inline int cc_row_words(int W) {
+  return W + 32 + (W + 3) / 4;
+}
+
+// Append x to a run's aggregate (f: the run holds a segment start; v: the
+// min since the run's last start, or over the whole run if none).
+__device__ __forceinline__ void seg_push(int& f, int& v, bool start, int x) {
+  if (start) {
+    f = 1;
+    v = x;
+  } else {
+    v = min(v, x);
   }
 }
 
-static size_t run_min_smem(int L) { return (size_t)L * (4 * 4 + 4); }
+// Exclusive segmented-min scan of the lanes' run aggregates, in lane order
+// (UP) or reverse lane order: the carry into this lane's run. The first lane
+// in scan order gets CC_BIG.
+template <bool UP>
+__device__ __forceinline__ int warp_seg_carry(int f, int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int fo = UP ? __shfl_up_sync(CC_FULL, f, o)
+                      : __shfl_down_sync(CC_FULL, f, o);
+    const int vo = UP ? __shfl_up_sync(CC_FULL, v, o)
+                      : __shfl_down_sync(CC_FULL, v, o);
+    if (UP ? lane >= o : lane + o < 32) {
+      if (!f) v = min(v, vo);
+      f |= fo;
+    }
+  }
+  const int prev = UP ? __shfl_up_sync(CC_FULL, v, 1)
+                      : __shfl_down_sync(CC_FULL, v, 1);
+  return (UP ? lane == 0 : lane == 31) ? CC_BIG : prev;
+}
 
-// fields: (N, H, W) int32, updated in place; scratch: same size. rounds_out
-// receives the number of sweeps run.
+// The forward aggregate of a run walked backward: before the run's last
+// start is reached, x joins the min (start: x is that start).
+__device__ __forceinline__ void seg_pull(int& f, int& v, bool start, int x) {
+  if (!f) {
+    v = min(v, x);
+    f = start;
+  }
+}
+
+// Fix-up step of a run: the running min m (reset at a segment start) into
+// ref; true if the pixel fell.
+__device__ __forceinline__ bool seg_fix(int32_t& ref, bool start, int& m) {
+  const int32_t s = ref;
+  m = start ? s : min(m, s);
+  ref = m;
+  return m < s;
+}
+
+// Phase 1 of sweep k: B = row run-min of (hop of A). A warp per row; lane l
+// owns pixels [l * R, l * R + R) of the row, stored at j + l in the warp's
+// buffer (a lane stride of R + 1 words, so the lanes' runs fall on distinct
+// banks when R is even), beside the row's horizontal edge bits (one byte
+// each). The coalesced loops walk the row in 32-pixel chunks (chunk i is
+// tile i) and carry x / R and x % R along, since a division by the runtime
+// R in every iteration would cost more than the rest of the phase.
+__device__ void row_phase(const CcArgs& p, int32_t* smem, int k,
+                          unsigned trip) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = p.w, H = p.h;
+  const int R = (W + 31) >> 5, tiles = R;
+  int32_t* buf = smem + warp * cc_row_words(W);
+  uint8_t* eh = (uint8_t*)(buf + W + 32);
+  const int lo = lane * R, hi = min(W, lo + R);
+  const int nwarps = gridDim.x * CC_WARPS;
+  for (int task = blockIdx.x * CC_WARPS + warp; task < p.n * H;
+       task += nwarps) {
+    const int y = task % H;
+    if (k > 0) {  // recompute only rows whose inputs changed in sweep k - 1
+      const int* rm = p.row_mark + (size_t)(k & 1) * p.n * H + task;
+      bool need = rm[0] == k;  // task = n * H + y
+      if (p.diag)
+        need |= (y > 0 && rm[-1] == k) ||
+                (y + 1 < H && rm[1] == k);
+      if (!need) continue;
+    }
+    const int32_t* arow = p.a + (size_t)task * W;
+    const uint8_t* e = p.edges + (size_t)y * W;
+    const uint8_t* act = p.active + (size_t)y * W;
+    int xq = lane / R, xr = lane % R;  // x / R, x % R
+    bool fell = false;
+#pragma unroll 4
+    for (int x = lane; x < W; x += 32) {
+      const int32_t v = arow[x];
+      const uint8_t ec = e[x];
+      int32_t m = v;
+      if (p.diag) {
+        // every load's address comes from (x, y) alone, so all of them are
+        // in flight at once; edges that leave the image are never set, so a
+        // clamped neighbour is masked off
+        const bool l = x > 0, u = y > 0;
+        const int xl = l ? x - 1 : x, xr1 = x + 1 < W ? x + 1 : x;
+        const int32_t* up = arow - (u ? W : 0);
+        const int32_t* dn = arow + (y + 1 < H ? W : 0);
+        const uint8_t el = l ? e[x - 1] : 0;
+        const uint8_t eu = u ? e[x - W] : 0;
+        const uint8_t eul = u && l ? e[x - W - 1] : 0;
+        const int32_t nr = arow[xr1], nl = arow[xl];
+        const int32_t nd = dn[x], ndr = dn[xr1], ndl = dn[xl];
+        const int32_t nu = up[x], nur = up[xr1], nul = up[xl];
+        // an allowed edge joins two active pixels, so a neighbour's value
+        // is its field value (ops/cc.py hop_many reads where(active, f, BIG))
+        if (act[x]) {
+          if (ec & 1) m = min(m, nr);
+          if (ec & 2) m = min(m, nd);
+          if (ec & 4) m = min(m, ndr);
+          if (el & 1) m = min(m, nl);
+          if (el & 8) m = min(m, ndl);  // (y+1,x-1)
+          if (eu & 2) m = min(m, nu);
+          if (eu & 8) m = min(m, nur);  // (y-1,x+1)
+          if (eul & 4) m = min(m, nul);
+        }
+        fell |= m < v;
+      }
+      buf[x + xq] = m;
+      eh[x] = ec & 1;
+      for (xr += 32; xr >= R; xr -= R) ++xq;
+    }
+    __syncwarp();
+    // backward: a segment starts where the edge to the right is missing;
+    // the fix-up also builds the forward aggregate of its results, where a
+    // segment starts where the edge to the left is missing
+    int f = 0, v = CC_BIG;
+    for (int j = hi - 1; j >= lo; --j) seg_push(f, v, !eh[j], buf[j + lane]);
+    int m = warp_seg_carry<false>(f, v, lane);
+    f = 0;
+    v = CC_BIG;
+    for (int j = hi - 1; j >= lo; --j) {
+      fell |= seg_fix(buf[j + lane], !eh[j], m);
+      seg_pull(f, v, j == 0 || !eh[j - 1], m);
+    }
+    m = warp_seg_carry<true>(f, v, lane);
+    for (int j = lo; j < hi; ++j)
+      fell |= seg_fix(buf[j + lane], j == 0 || !eh[j - 1], m);
+    if (__any_sync(CC_FULL, fell) && lane == 0) {
+      p.row_mark[(size_t)((k + 1) & 1) * p.n * H + task] = k + 1;
+      *(volatile unsigned*)p.stamp = trip;
+    }
+    __syncwarp();
+    int32_t* brow = p.b + (size_t)task * W;
+    int* tm = p.tile_mark + (size_t)(task / H) * tiles;
+    xq = lane / R;
+    xr = lane % R;
+#pragma unroll 4
+    for (int i = 0; i < tiles; ++i) {
+      const int x = i * 32 + lane;
+      bool diff = false;
+      if (x < W) {
+        const int32_t out = buf[x + xq];
+        // sweep 0's column phase takes every tile, and B holds no row yet
+        diff = k == 0 || out != brow[x];
+        brow[x] = out;
+      }
+      if (__any_sync(CC_FULL, diff) && lane == 0) tm[i] = k + 1;
+      for (xr += 32; xr >= R; xr -= R) ++xq;
+    }
+    __syncwarp();  // the buffer is refilled by the next task
+  }
+}
+
+// Phase 2 of sweep k: A = column run-min of B. A block per tile of 32
+// columns of one field, held in shared memory as tile[y][lane] beside the
+// vertical edge bits; warp w owns rows [w * Rc, w * Rc + Rc), lane c the
+// column x0 + c.
+__device__ void col_phase(const CcArgs& p, int32_t* smem, int k,
+                          unsigned trip) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int W = p.w, H = p.h;
+  const int tiles = (W + 31) >> 5;
+  int32_t* tile = smem;                     // [H][32]
+  int32_t* aggf = tile + (size_t)H * 32;    // [CC_WARPS][32]
+  int32_t* aggv = aggf + CC_WARPS * 32;     // [CC_WARPS][32]
+  uint8_t* ev = (uint8_t*)(aggv + CC_WARPS * 32);  // [H][32]
+  const int Rc = (H + CC_WARPS - 1) / CC_WARPS;
+  const int lo = min(H, warp * Rc), hi = min(H, lo + Rc);
+  for (int task = blockIdx.x; task < p.n * tiles; task += gridDim.x) {
+    // recompute only tiles of B that this sweep's row phase changed
+    if (k > 0 && p.tile_mark[task] != k + 1) continue;
+    const int x = (task % tiles) * 32 + lane;
+    const bool in = x < W;
+    const size_t plane = (size_t)(task / tiles) * H * W;
+#pragma unroll 16
+    for (int y = warp; y < H; y += CC_WARPS) {
+      const size_t q = (size_t)y * W + x;
+      tile[y * 32 + lane] = in ? p.b[plane + q] : CC_BIG;
+      ev[y * 32 + lane] = in ? (__ldg(p.edges + q) >> 1) & 1 : 0;
+    }
+    __syncthreads();
+    // backward (bottom to top): a segment starts where the edge to the row
+    // below is missing
+    int f = 0, v = CC_BIG;
+    for (int y = hi - 1; y >= lo; --y)
+      seg_push(f, v, !ev[y * 32 + lane], tile[y * 32 + lane]);
+    aggf[warp * 32 + lane] = f;
+    aggv[warp * 32 + lane] = v;
+    __syncthreads();
+    int m = CC_BIG;
+    for (int j = CC_WARPS - 1; j > warp; --j) {
+      const int jv = aggv[j * 32 + lane];
+      m = aggf[j * 32 + lane] ? jv : min(m, jv);
+    }
+    __syncthreads();  // every warp has read the aggregates
+    // the fix-up also builds the forward (top to bottom) aggregate of its
+    // results: a segment starts where the edge to the row above is missing
+    int* rm = p.row_mark + (size_t)((k + 1) & 1) * p.n * H +
+              (size_t)(task / tiles) * H;
+    bool changed = false;
+    f = 0;
+    v = CC_BIG;
+    for (int y = hi - 1; y >= lo; --y) {
+      const bool fell = seg_fix(tile[y * 32 + lane], !ev[y * 32 + lane], m);
+      seg_pull(f, v, y == 0 || !ev[(y - 1) * 32 + lane], m);
+      if (__any_sync(CC_FULL, fell) && lane == 0) {
+        rm[y] = k + 1;
+        changed = true;
+      }
+    }
+    aggf[warp * 32 + lane] = f;
+    aggv[warp * 32 + lane] = v;
+    __syncthreads();
+    m = CC_BIG;
+    for (int j = 0; j < warp; ++j) {
+      const int jv = aggv[j * 32 + lane];
+      m = aggf[j * 32 + lane] ? jv : min(m, jv);
+    }
+    for (int y = lo; y < hi; ++y) {
+      const bool fell =
+          seg_fix(tile[y * 32 + lane], y == 0 || !ev[(y - 1) * 32 + lane], m);
+      if (__any_sync(CC_FULL, fell) && lane == 0) {
+        rm[y] = k + 1;
+        changed = true;
+      }
+    }
+    if (changed) *(volatile unsigned*)p.stamp = trip;
+    __syncthreads();
+    if (in) {
+#pragma unroll 8
+      for (int y = warp; y < H; y += CC_WARPS)
+        p.a[plane + (size_t)y * W + x] = tile[y * 32 + lane];
+    }
+    __syncthreads();  // the tile is refilled by the next task
+  }
+}
+
+__global__ void __launch_bounds__(CC_THREADS, 1) cc_propagate_kernel(CcArgs p) {
+  extern __shared__ int32_t smem[];
+  int k = 0;  // sweeps run
+  for (unsigned trip = 1; k < p.max_rounds; ++trip) {
+    for (int s = 0; s < 2; ++s, ++k) {
+      row_phase(p, smem, k, trip);
+      grid_barrier(p.bar);
+      col_phase(p, smem, k, trip);
+      grid_barrier(p.bar);
+    }
+    if (ld_acquire(p.stamp) < trip) break;  // the trip changed nothing
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) *p.rounds = k;
+}
+
+static size_t cc_smem(int H, int W) {
+  const size_t rows = (size_t)CC_WARPS * cc_row_words(W) * sizeof(int32_t);
+  const size_t cols = ((size_t)H * 32 + 2 * CC_WARPS * 32) * sizeof(int32_t) +
+                      (size_t)H * 32;
+  return rows > cols ? rows : cols;
+}
+
+// fields: (N, H, W) int32, updated in place; scratch: same size. state:
+// 4 + 2 * N * H + N * ceil(W / 32) zeroed words (grid barrier arrivals and
+// generation, the change stamp, the sweep count, written at the end; the
+// row and tile marks). One cooperative launch on `stream`; returns its
+// error code (a shape that needs more shared memory than a block may have,
+// or a grid that cannot be resident, is refused).
 extern "C" int rtdm_cc_propagate(void* fields, void* scratch,
                                  const void* active, const void* edges, int N,
                                  int H, int W, int diag, int max_rounds,
-                                 void* changed_dev, void* rounds_out,
-                                 void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  int32_t* cur = (int32_t*)fields;
-  int32_t* other = (int32_t*)scratch;
-  int* changed_d = (int*)changed_dev;
-  const size_t smem_rows = run_min_smem(W), smem_cols = run_min_smem(H);
-  const size_t smem_max = smem_rows > smem_cols ? smem_rows : smem_cols;
+                                 void* state, void* stream) {
+  const size_t smem = cc_smem(H, W);
   cudaError_t err = cudaFuncSetAttribute(
-      run_min_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_max);
+      cc_propagate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 hop_grid((W + 127) / 128, H, N);
-  int rounds = 0;
-  int changed = 1;
-  while (changed && rounds < max_rounds) {
-    cudaMemsetAsync(changed_d, 0, sizeof(int), stream);
-    for (int s = 0; s < 2; ++s) {
-      if (diag) {
-        hop_kernel<<<hop_grid, 128, 0, stream>>>(
-            cur, other, (const uint8_t*)active, (const uint8_t*)edges, H, W,
-            changed_d);
-        int32_t* t = cur;
-        cur = other;
-        other = t;
-      }
-      run_min_kernel<<<dim3(H, N), 256, smem_rows, stream>>>(
-          cur, (const uint8_t*)edges, H, W, 1, changed_d);
-      run_min_kernel<<<dim3(W, N), 256, smem_cols, stream>>>(
-          cur, (const uint8_t*)edges, H, W, 0, changed_d);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    err = cudaMemcpyAsync(&changed, changed_d, sizeof(int),
-                          cudaMemcpyDeviceToHost, stream);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaStreamSynchronize(stream);
-    if (err != cudaSuccess) return (int)err;
-    rounds += 2;
-  }
-  if (cur != (int32_t*)fields) {
-    err = cudaMemcpyAsync(fields, cur, (size_t)N * H * W * sizeof(int32_t),
-                          cudaMemcpyDeviceToDevice, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  *(int*)rounds_out = rounds;
-  return (int)cudaGetLastError();
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, cc_propagate_kernel, CC_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  unsigned* st = (unsigned*)state;
+  int* row_mark = (int*)(st + 4);
+  CcArgs a = {(int32_t*)fields, (int32_t*)scratch, (const uint8_t*)active,
+              (const uint8_t*)edges, N, H, W, diag, max_rounds,
+              st, st + 2, (int*)(st + 3), row_mark, row_mark + (size_t)2 * N * H};
+  void* args[] = {&a};
+  // one block per SM: 16 warps a block cover the rows, and fewer blocks
+  // make each grid barrier cheaper
+  return (int)cudaLaunchCooperativeKernel((const void*)cc_propagate_kernel,
+                                          dim3(sms), dim3(CC_THREADS), args,
+                                          smem, (cudaStream_t)stream);
 }
 
 extern "C" const char* rtdm_error_string(int err) {

@@ -1,9 +1,10 @@
 // One SGM path direction over a D-contiguous cost volume: a warp per
 // scanline, D spread over the 32 lanes (the design of arXiv 1610.04121).
 //
-// Shared by sgm_horiz.cu (K4), sgm_vert_wta.cu (K5) and sgm_hdw.cu (K9a-K9d,
-// K11). The recurrence is that of rt_depth_map_tpu/ops/sgbm.py _sgm_step /
-// _aggregate_dir:
+// The scan kernel serves sgm_horiz.cu (K4) and sgm_hdw.cu (K9a-K9d, K11);
+// sgm_vert_wta.cu (K5) has its own row-synchronous kernel and shares only
+// the step (sgm_step) and the winner-take-all (sgm_wta). The recurrence is
+// that of rt_depth_map_tpu/ops/sgbm.py _sgm_step / _aggregate_dir:
 //
 //   L(p, d) = C(p, d) + min(Lp(d), Lp(d-1) + P1, Lp(d+1) + P1, minLp + P2)
 //             - (minLp + P2)
@@ -99,6 +100,80 @@ __host__ __device__ inline int sgm_num_lines(int H, int W1, int dy, int dx) {
   return W1 + H - 1;
 }
 
+// One recurrence step of a warp: L(p, :) from the pixel's cost c and the
+// predecessor's Lp (lane l holds d = d0 + k = l * K + k; ok[k]: d < D).
+template <int K>
+__device__ __forceinline__ void sgm_step(const int (&c)[K], const int (&Lp)[K],
+                                         const bool (&ok)[K], int d0, int D,
+                                         int p1, int p2, int (&L)[K]) {
+  int mn = SGM_BIG;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (ok[k]) mn = min(mn, Lp[k]);
+  const int minLp = __reduce_min_sync(SGM_FULL, mn);
+  const int from_left = __shfl_up_sync(SGM_FULL, Lp[K - 1], 1);
+  const int from_right = __shfl_down_sync(SGM_FULL, Lp[0], 1);
+  const int delta = minLp + p2;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = d0 + k;
+    int lm = k > 0 ? Lp[k - 1] : from_left;
+    if (d == 0) lm = SGM_MAX_COST;
+    int lq = k < K - 1 ? Lp[k + 1] : from_right;
+    if (d + 1 >= D) lq = SGM_MAX_COST;
+    const int m = min(min(Lp[k], delta), min(lm, lq) + p1);
+    L[k] = c[k] + m - delta;
+  }
+}
+
+// Winner-take-all over a pixel's total S (tot, laid out as in sgm_step):
+// ties to the smallest d, uniqueness over |d - best| > 1, parabolic
+// subpixel truncated toward zero; lane 0 writes the four outputs at pix.
+template <int K>
+__device__ __forceinline__ void sgm_wta(const int (&tot)[K],
+                                        const bool (&ok)[K], int d0, int D,
+                                        int lane, const SgmWtaOut& wta,
+                                        long long pix) {
+  int smin = SGM_BIG;
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    if (ok[k]) smin = min(smin, tot[k]);
+  const int minS = __reduce_min_sync(SGM_FULL, smin);
+  int bcand = SGM_BIG;
+#pragma unroll
+  for (int k = K - 1; k >= 0; --k)
+    if (ok[k] && tot[k] == minS) bcand = d0 + k;
+  const int best = __reduce_min_sync(SGM_FULL, bcand);
+  bool bad = false;
+  int smv = SGM_BIG, spv = SGM_BIG;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = d0 + k;
+    if (!ok[k]) continue;
+    if (abs(d - best) > 1 &&
+        tot[k] * (100 - wta.uniqueness_ratio) < minS * 100)
+      bad = true;
+    if (d == best - 1) smv = tot[k];
+    if (d == best + 1) spv = tot[k];
+  }
+  const unsigned any_bad = __ballot_sync(SGM_FULL, bad);
+  int sm = __reduce_min_sync(SGM_FULL, smv);
+  int sp = __reduce_min_sync(SGM_FULL, spv);
+  if (lane == 0) {
+    const bool has_nb = best > 0 && best < D - 1;
+    if (best == 0) sm = minS;
+    if (best == D - 1) sp = minS;
+    const int denom2 = max(sm + sp - 2 * minS, 1);
+    const int num = (sm - sp) * 16 + denom2;
+    const int q = abs(num) / (2 * denom2);
+    const int sub = num > 0 ? q : (num < 0 ? -q : 0);
+    wta.best[pix] = best;
+    wta.minS[pix] = minS;
+    wta.dval[pix] = has_nb ? best * 16 + sub : best * 16;
+    wta.uniq[pix] = any_bad != 0u;
+  }
+}
+
 template <typename CT, typename SI, typename SO, int K, int MODE>
 __global__ void __launch_bounds__(128)
 sgm_path_kernel(const CT* __restrict__ C, const SI* S_in, SO* S_out,
@@ -160,26 +235,8 @@ sgm_path_kernel(const CT* __restrict__ C, const SI* S_in, SO* S_out,
           }
         }
 
-        // the recurrence step
-        int mn = SGM_BIG;
-#pragma unroll
-        for (int k = 0; k < K; ++k)
-          if (ok[k]) mn = min(mn, Lp[k]);
-        const int minLp = __reduce_min_sync(SGM_FULL, mn);
-        const int from_left = __shfl_up_sync(SGM_FULL, Lp[K - 1], 1);
-        const int from_right = __shfl_down_sync(SGM_FULL, Lp[0], 1);
-        const int delta = minLp + p2;
         int L[K];
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const int d = d0 + k;
-          int lm = k > 0 ? Lp[k - 1] : from_left;
-          if (d == 0) lm = SGM_MAX_COST;
-          int lq = k < K - 1 ? Lp[k + 1] : from_right;
-          if (d + 1 >= D) lq = SGM_MAX_COST;
-          const int m = min(min(Lp[k], delta), min(lm, lq) + p1);
-          L[k] = c[k] + m - delta;
-        }
+        sgm_step<K>(c, Lp, ok, d0, D, p1, p2, L);
 #pragma unroll
         for (int k = 0; k < K; ++k) Lp[k] = L[k];
 
@@ -190,51 +247,11 @@ sgm_path_kernel(const CT* __restrict__ C, const SI* S_in, SO* S_out,
             if (ok[k])
               S_out[o + k] = (SO)((MODE == SGM_ADD ? sv[k] : 0) + L[k]);
         } else {
-          // winner-take-all over the pixel's total S = S_in + L: ties to
-          // the smallest d, uniqueness over |d - best| > 1, parabolic
-          // subpixel truncated toward zero
           int tot[K];
-          int smin = SGM_BIG;
 #pragma unroll
-          for (int k = 0; k < K; ++k) {
-            tot[k] = sv[k] + L[k];
-            if (ok[k]) smin = min(smin, tot[k]);
-          }
-          const int minS = __reduce_min_sync(SGM_FULL, smin);
-          int bcand = SGM_BIG;
-#pragma unroll
-          for (int k = K - 1; k >= 0; --k)
-            if (ok[k] && tot[k] == minS) bcand = d0 + k;
-          const int best = __reduce_min_sync(SGM_FULL, bcand);
-          bool bad = false;
-          int smv = SGM_BIG, spv = SGM_BIG;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const int d = d0 + k;
-            if (!ok[k]) continue;
-            if (abs(d - best) > 1 &&
-                tot[k] * (100 - wta.uniqueness_ratio) < minS * 100)
-              bad = true;
-            if (d == best - 1) smv = tot[k];
-            if (d == best + 1) spv = tot[k];
-          }
-          const unsigned any_bad = __ballot_sync(SGM_FULL, bad);
-          int sm = __reduce_min_sync(SGM_FULL, smv);
-          int sp = __reduce_min_sync(SGM_FULL, spv);
-          if (lane == 0) {
-            const bool has_nb = best > 0 && best < D - 1;
-            if (best == 0) sm = minS;
-            if (best == D - 1) sp = minS;
-            const int denom2 = max(sm + sp - 2 * minS, 1);
-            const int num = (sm - sp) * 16 + denom2;
-            const int q = abs(num) / (2 * denom2);
-            const int sub = num > 0 ? q : (num < 0 ? -q : 0);
-            const long long pix = (long long)(y0 + s * dy) * W1 + x0 + s * dx;
-            wta.best[pix] = best;
-            wta.minS[pix] = minS;
-            wta.dval[pix] = has_nb ? best * 16 + sub : best * 16;
-            wta.uniq[pix] = any_bad != 0u;
-          }
+          for (int k = 0; k < K; ++k) tot[k] = sv[k] + L[k];
+          sgm_wta<K>(tot, ok, d0, D, lane, wta,
+                     (long long)(y0 + s * dy) * W1 + x0 + s * dx);
         }
       }
     }

@@ -7,10 +7,14 @@ per trip; stop when a trip changes nothing or the sweep count reaches the
 cap), so that the result matches the reference bit for bit even where the
 cap stops propagation short of the fixed point.
 
-On the H100 the work per sweep is small (a few passes over 4 fields of
-1280x720 int32); what bounds it is the number of launches and the one
-device-to-host flag read per trip. The kernel does every sweep of a trip
-without the host and reads the "changed" flag once per trip.
+On the H100 the whole propagation is one cooperative launch that loops over
+the trips on the device, with grid barriers between its phases (a hop and
+row run-min phase, then a column run-min phase, per sweep; each recomputes
+only the rows or column tiles whose inputs the sweep before changed), and
+stops there when a trip changed nothing (`csrc/cc_sweep.cu`). Nothing in a call
+waits for the device: the sweep count is left in
+`seg_min_propagate.last_rounds`, a 1-element int32 tensor on the device,
+which a caller reads after its own synchronise.
 
 `seg_min_propagate` launches the kernel for CUDA tensors and runs
 `seg_min_propagate_plain` for CPU tensors; any other device raises.
@@ -18,7 +22,6 @@ without the host and reads the "changed" flag once per trip.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -112,7 +115,7 @@ def _fn():
     fn = lib.rtdm_cc_propagate
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, P, P, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
         fn.restype = I
     return lib, fn
 
@@ -149,20 +152,23 @@ def seg_min_propagate(field: torch.Tensor, active: torch.Tensor,
     out = f.clone()
     scratch = torch.empty_like(out)
     edges = pack_edges(allowed_h, allowed_v, allowed_se, allowed_sw)
-    changed = torch.zeros(1, dtype=torch.int32, device=f.device)
-    rounds = ctypes.c_int(0)
+    # grid barrier arrivals and generation, the change stamp, the sweep
+    # count, then the marks of the rows and 32-column tiles each sweep changed
+    state = torch.zeros(4 + 2 * N * H + N * -(-W // 32), dtype=torch.int32,
+                        device=f.device)
     cap = UNCAPPED if max_rounds is None else int(max_rounds)
     lib, fn = _fn()
     with torch.cuda.device(f.device):
         err = fn(out.data_ptr(), scratch.data_ptr(), active.data_ptr(),
                  edges.data_ptr(), N, H, W, int(allowed_se is not None), cap,
-                 changed.data_ptr(), ctypes.addressof(rounds),
-                 _build.stream_of(f))
+                 state.data_ptr(), _build.stream_of(f))
     seg_min_propagate.launches += 1
     _build.check(lib, err, "seg_min_propagate")
-    seg_min_propagate.last_rounds = rounds.value
+    seg_min_propagate.last_rounds = state[3:4]
     return out[0] if squeeze else out
 
 
 seg_min_propagate.launches = 0
-seg_min_propagate.last_rounds = 0
+#: sweeps of the last CUDA call: a 1-element int32 device tensor (None
+#: before the first); read it after a synchronise
+seg_min_propagate.last_rounds = None

@@ -7,11 +7,15 @@ per pixel, (best, minS, dval, uniq), each (H, W1) int32: the winner (ties to
 the smallest d), its cost, the x16 subpixel disparity without the
 min_disparity offset, and 1 where the SGBM uniqueness test fails.
 
-The TPU kernel keeps row-wide carries in VMEM; the port gives each scanline
-(a column, or a diagonal entering from the top or bottom row or a side
-column) a warp, in six launches that add into one int32 S, the last doing the
-winner-take-all from registers (`csrc/sgm_vert_wta.cu`). It is bound by
-device memory bytes.
+On the H100 two row-synchronous launches do it (`csrc/sgm_vert_wta.cu`):
+the first walks the rows down with the three top-down directions and writes
+S = Sh + their L once; the second walks up with the other three and does
+the winner-take-all from registers. A block owns a band of columns (as many
+as spread W1 over the card's SMs, at most 16), a warp per column; the
+diagonal carries cross columns through shared memory inside a band and
+through row-tagged device-memory slots between bands, so every band must be
+resident at once: the launches are cooperative, and a shape whose bands
+cannot all be resident (W1 > 16 x the card's SMs) is refused and raises.
 
 `sgm_vert_wta` launches the kernels for CUDA tensors and runs
 `sgm_vert_wta_plain` for CPU tensors; any other device raises.
@@ -27,6 +31,9 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import aggregate_dir
 DISP_SCALE = 16
 #: the six directions (dy, dx) of K5; a pixel (y, x) follows (y-dy, x-dx)
 VERT_DIRS = ((1, 0), (1, 1), (1, -1), (-1, 0), (-1, 1), (-1, -1))
+#: most columns of a band, one warp each (VB_MAX_COLS in
+#: `csrc/sgm_vert_wta.cu`)
+MAX_BAND_COLS = 16
 
 
 def wta_uniq_subpix(S: torch.Tensor, uniqueness_ratio: int):
@@ -63,12 +70,19 @@ def sgm_vert_wta_plain(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
     return wta_uniq_subpix(S, uniqueness_ratio)
 
 
+def band_cols(W1: int, device) -> int:
+    """Columns of a band of the kernel on `device`: one band per SM where
+    the columns allow it (every band must be resident at once)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(MAX_BAND_COLS, -(-W1 // sms))
+
+
 def _fn():
     lib = _build.load("sgm_vert_wta")
     fn = lib.rtdm_sgm_vert_wta
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, I, P, P, I, I, I, I, I, I, P, P, P, P, P]
+        fn.argtypes = [P, I, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P]
         fn.restype = I
     return lib, fn
 
@@ -89,14 +103,24 @@ def sgm_vert_wta(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
         raise ValueError(f"C must be int16 or int32, got {C.dtype}")
     _build.require(C, "C", C.dtype)
     _build.require(Sh, "Sh", torch.int32, (H, W1, D))
+    # the kernels move whole vectors of up to 32 bytes: a view that starts
+    # off that alignment is copied
+    C = C if C.data_ptr() % 32 == 0 else C.clone()
+    Sh = Sh if Sh.data_ptr() % 32 == 0 else Sh.clone()
     S = torch.empty((H, W1, D), dtype=torch.int32, device=C.device)
+    cols = band_cols(W1, C.device)
+    bands = -(-W1 // cols)
+    # each band's two edge carries, double-buffered, as (row tag, value)
+    # words; tag 0 names no row
+    edge = torch.zeros((bands, 2, 2, D), dtype=torch.int64, device=C.device)
     outs = [torch.empty((H, W1), dtype=torch.int32, device=C.device)
             for _ in range(4)]
     lib, fn = _fn()
     with torch.cuda.device(C.device):
         err = fn(C.data_ptr(), C.element_size(), Sh.data_ptr(), S.data_ptr(),
-                 H, W1, D, int(p1), int(p2), int(uniqueness_ratio),
-                 *[o.data_ptr() for o in outs], _build.stream_of(C))
+                 edge.data_ptr(), H, W1, D, cols, int(p1), int(p2),
+                 int(uniqueness_ratio), *[o.data_ptr() for o in outs],
+                 _build.stream_of(C))
     sgm_vert_wta.launches += 1
     _build.check(lib, err, "sgm_vert_wta")
     return tuple(outs)
