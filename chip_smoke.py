@@ -25,7 +25,9 @@ the script exits non-zero:
      that leaves its last band of columns ragged); the chained passes
      (K9a/K9b, K9c/K11, K9d: both senses, with and without a partial, int16
      and int32) at the stretch point 1920x1080, D=256 and at the odd shape;
-     K3, K6 and K7 at all three; the bidir and chained 8-path routes timed
+     K3, K6 and K7 at all three (K3 also with an int32 volume, bs 11, at
+     the flagship and odd shapes); K4 must make one CUDA launch a call
+     (the library's own count); the bidir and chained 8-path routes timed
      on the flagship and stretch volumes, which must give the same winners;
      a snake through the speckle path where the 16-sweep cap binds; the BM
      and SGM matchers against the repo's numpy goldens (cv2.StereoBM and
@@ -33,7 +35,8 @@ the script exits non-zero:
      both of its routes);
   4. engine, SGM: Engine.run on a synthetic 1280x720 stream through a
      non-identity rectification with the launch counts set to 0 just
-     before; every kernel of the path must have launched, and every frame's
+     before; every kernel of the path must have launched (K12 twice a
+     frame, K4 and K5 once), and every frame's
      disparity, boxes, mask and count must equal the plain frame program;
      then the frame program's median time and the pipelined frame rate;
   5. stage profile of the SGM frame program (a CUDA event at each of the
@@ -47,12 +50,14 @@ the script exits non-zero:
   8. engine, cv2 MODE_SGBM (1280x720, 5 paths, D=128): the same checks, K9c
      and the bidir kernels must not launch; its timing and stage profile.
 
-The last lines are the kernels' JSON summary, the nvidia-smi line, and
-{"ok": true, "device": {...}}.
+The last lines are the kernels' JSON summary (each kernel's first timed
+case, and under `cases` every timed case with its own bound and library
+time), the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -442,7 +447,9 @@ def main() -> int:
               plain_reps=15, timed=True):
         """Exact equality, then timing (timed=False: a variant case, checked
         only); the first timed case of a kernel is the one its summary
-        reports (bound: (in_bytes, out_bytes, ops))."""
+        reports, and every timed case is listed under its `cases` (bound:
+        (in_bytes, out_bytes, ops); library_fn: one PyTorch call computing
+        the same function, timed beside every timed case that has one)."""
         err = _max_abs_err(kernel_fn(), plain_fn())
         if err != 0:
             raise AssertionError(f"{wrapper.__name__} {what}: kernel != plain "
@@ -454,17 +461,18 @@ def main() -> int:
             return
         ms = _time_ms(kernel_fn)
         plain_ms = _time_ms(plain_fn, reps=plain_reps, warm=1)
-        line = f"phase 3 {wrapper.__name__} {what}: exact, {ms:.4f} ms (plain {plain_ms:.3f} ms"
-        if bound is not None:
-            b_ms, b_by = _bound(*bound)
-            line += f", bound {b_ms:.4f} ms by {b_by}"
+        b_ms, b_by = _bound(*bound)
+        lib_ms = _time_ms(library_fn) if library_fn is not None else None
+        line = (f"phase 3 {wrapper.__name__} {what}: exact, {ms:.4f} ms (plain "
+                f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
+        if lib_ms is not None:
+            line += f", library {lib_ms:.4f} ms"
+        case = dict(what=what, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=lib_ms)
         if wrapper.__name__ not in stats:
-            lib_ms = _time_ms(library_fn) if library_fn is not None else None
-            stats[wrapper.__name__] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=b_ms, bound_by=b_by,
-                                           library_ms=lib_ms)
-            if lib_ms is not None:
-                line += f", library {lib_ms:.4f} ms"
+            stats[wrapper.__name__] = dict(max_abs_err=0, cases=[], **{
+                k: v for k, v in case.items() if k != "what"})
+        stats[wrapper.__name__]["cases"].append(case)
         stats[wrapper.__name__]["max_abs_err"] = max(
             stats[wrapper.__name__]["max_abs_err"], err)
         print(line + ")", flush=True)
@@ -540,6 +548,15 @@ def main() -> int:
               library_fn=lambda: C4.transpose(0, 2).contiguous())
         Ct = sg.swap_pixel_axes(C)
         Sh_t = sgm_horiz(Ct, p1, p2)
+        # the library counts the CUDA launches it makes
+        count = ctypes.c_int.in_dll(_build.load("sgm_horiz"),
+                                    "rtdm_sgm_horiz_kernel_launches")
+        before = count.value
+        sgm_horiz(Ct, p1, p2)
+        if count.value - before != 1:
+            raise AssertionError(f"sgm_horiz {what}: {count.value - before} CUDA "
+                                 f"launches in one call, not 1")
+        print(f"phase 3 sgm_horiz {what}: one CUDA launch a call", flush=True)
         # 8 operations per element and direction (min, shuffles, add)
         check(sgm_horiz, lambda: sgm_horiz(Ct, p1, p2),
               lambda: sgm_horiz_plain(Ct, p1, p2), what,
@@ -633,6 +650,14 @@ def main() -> int:
               lambda: sgm_cost_volume_plain(lpl, rpl, d, BS, dtype)[0], what,
               bound=(_nbytes(lpl, rpl), _nbytes(C), 21 * n), plain_reps=5)
         if (h, w, d) != STRETCH:
+            # the int32 volume: bs 11 needs it even at pre_filter_cap 0
+            dt11 = sg.volume_dtype(11, m.pre_filter_cap)
+            if dt11 != torch.int32:
+                raise AssertionError(f"volume_dtype(11, {m.pre_filter_cap}) is {dt11}")
+            check(sgm_cost_volume, lambda: sgm_cost_volume(lpl, rpl, d, 11, dt11)[0],
+                  lambda: sgm_cost_volume_plain(lpl, rpl, d, 11, dt11)[0],
+                  what + " bs=11 int32", timed=False)
+        if (h, w, d) != STRETCH:
             outs = bidir_checks(C, what)
             # K5 where the last band of columns is ragged
             W1 = w - d
@@ -720,7 +745,7 @@ def main() -> int:
     # its TPU call (one element per unit: the shared-memory tile variant)
     xt = torch.randint(-3000, 3000, (1152, 128, 768), dtype=torch.int16, device=dev)
     check(vol_transpose, lambda: vol_transpose(xt), lambda: vol_transpose_plain(xt),
-          "TPU form (1152, 128, 768) int16")
+          "TPU form (1152, 128, 768) int16", bound=(_nbytes(xt), _nbytes(xt), 0))
     del xt
 
     # the speckle path under the cap: a snake disparity whose value-edge
@@ -754,8 +779,10 @@ def main() -> int:
     _, _, d_int, key = bm_ops.lr_key_planes(bdisp, bm_out[1])
     kw = dict(n_w=BM_D + 1, r_lo=0, n_r=BM_D + 1, Dpow=bm_ops.LR_DPOW,
               c0=-bm_ops.LR_OFF, invalid=-16)
+    outs6 = lr_resolve(d_int, key, (d_int,), **kw)
     check(lr_resolve, lambda: lr_resolve(d_int, key, (d_int,), **kw),
-          lambda: lr_resolve_plain(d_int, key, (d_int,), **kw), "BM LR check")
+          lambda: lr_resolve_plain(d_int, key, (d_int,), **kw), "BM LR check",
+          bound=(_nbytes(d_int, key), _nbytes(*outs6), 6 * H * W))
     print(f"phase 3 bm: {int((bdisp != -16).sum())} valid pixels before the LR "
           f"check", flush=True)
 
@@ -801,6 +828,11 @@ def main() -> int:
 
     # -- 4. the SGM engine (the main path) -----------------------------------
     sgm_eng, sgm_launches = _check_engine(4, "sgm", W, H, SGM_PATH)
+    # the TPU's two transposes stay around K4, which is one call a frame
+    per_frame = {"vol_transpose": 2, "sgm_horiz": 1, "sgm_vert_wta": 1}
+    if any(sgm_launches[k] != n * ENGINE_FRAMES for k, n in per_frame.items()):
+        raise AssertionError(f"phase 4: launches {sgm_launches}, expected per "
+                             f"frame {per_frame}")
     pair = (left, right)
     _timed_run(4, "SGM", card, sgm_eng, *pair, W, H)
     plain_frame_ms = _wall_ms(lambda: sgm_eng.frame_program(*pair, plain=True), reps=2)
@@ -863,7 +895,8 @@ def main() -> int:
                             max_abs_err=s["max_abs_err"], ms=s["ms"],
                             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                             bound_by=s["bound_by"], library_ms=s["library_ms"],
-                            launches_by_path={k: v[n] for k, v in runs.items()}))
+                            launches_by_path={k: v[n] for k, v in runs.items()},
+                            cases=s["cases"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

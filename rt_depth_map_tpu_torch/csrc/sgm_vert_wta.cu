@@ -53,15 +53,10 @@
 // which guarantees that or refuses the launch (then the wrapper raises). No
 // thread block clusters are used.
 
+#include "async_copy.cuh"
 #include "sgm_path.cuh"
 
 #define VB_MAX_COLS 16
-
-// A lane's K elements of one pixel, moved as one vector.
-template <typename T, int K>
-struct alignas(sizeof(T) * K) VbVec {
-  T v[K];
-};
 
 typedef unsigned long long vb_word;  // (row tag << 32) | (uint32) carry
 
@@ -116,22 +111,6 @@ struct VbPrefetch {
   static constexpr int ring = K <= 4 ? 8 : 4;  // a power of 2
 };
 
-// Asynchronous 16-byte copies from device to shared memory, in groups.
-__device__ __forceinline__ void vb_cp16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void vb_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void vb_wait_groups() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // UP = false: launch 1 (S_in = Sh, writes S_out = S). UP = true: launch 2
 // (S_in = S, writes the WTA outputs). edge: [bands][2 sides][2 parities][D]
 // tagged words, zero before launch 1. Side 0 is a band's first column's
@@ -172,7 +151,7 @@ sgm_vert3_kernel(const CT* __restrict__ C, const int32_t* __restrict__ S_in,
   };
   auto row_of = [&](int s) { return UP ? H - 1 - s : s; };
   // the register path: C and S_in of row step s into a ring slot
-  auto load = [&](int s, VbVec<CT, K>& c, VbVec<int32_t, K>& sv) {
+  auto load = [&](int s, LaneVec<CT, K>& c, LaneVec<int32_t, K>& sv) {
     const size_t o = ((size_t)row_of(s) * W1 + x) * D + d0;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -197,16 +176,16 @@ sgm_vert3_kernel(const CT* __restrict__ C, const int32_t* __restrict__ S_in,
       const char* gc = reinterpret_cast<const char*>(C + o);
       char* sc = reinterpret_cast<char*>(ring_c + slot * D);
       for (int q = lane; q < D * (int)sizeof(CT) / 16; q += 32)
-        vb_cp16(sc + 16 * q, gc + 16 * q);
+        cp_async16(sc + 16 * q, gc + 16 * q);
       const char* gs = reinterpret_cast<const char*>(S_in + o);
       char* ss = reinterpret_cast<char*>(ring_s + slot * D);
-      for (int q = lane; q < D / 4; q += 32) vb_cp16(ss + 16 * q, gs + 16 * q);
+      for (int q = lane; q < D / 4; q += 32) cp_async16(ss + 16 * q, gs + 16 * q);
     }
-    vb_commit();
+    cp_async_commit();
   };
 
-  VbVec<CT, K> cr[PF];
-  VbVec<int32_t, K> sr[PF];
+  LaneVec<CT, K> cr[PF];
+  LaneVec<int32_t, K> sr[PF];
   if constexpr (ASYNC) {
     if (live)
       for (int r = 0; r + 1 < RING; ++r) fetch(r);
@@ -236,7 +215,7 @@ sgm_vert3_kernel(const CT* __restrict__ C, const int32_t* __restrict__ S_in,
         if constexpr (ASYNC) {
           // row s + RING - 1 goes out; row s, RING - 1 groups older, is in
           fetch(s + RING - 1);
-          vb_wait_groups<RING - 1>();
+          cp_async_wait<RING - 1>();
           __syncwarp();  // the row's pieces came through every lane
           const int slot = s & (RING - 1);
           const CT* rc = ring_c + slot * D + d0;
@@ -304,10 +283,10 @@ sgm_vert3_kernel(const CT* __restrict__ C, const int32_t* __restrict__ S_in,
         if (!UP) {
           int32_t* out = S_out + ((size_t)y * W1 + x) * D + d0;
           if (vec) {
-            VbVec<int32_t, K> t;
+            LaneVec<int32_t, K> t;
 #pragma unroll
             for (int k = 0; k < K; ++k) t.v[k] = tot[k];
-            *reinterpret_cast<VbVec<int32_t, K>*>(out) = t;
+            *reinterpret_cast<LaneVec<int32_t, K>*>(out) = t;
           } else {
 #pragma unroll
             for (int k = 0; k < K; ++k)

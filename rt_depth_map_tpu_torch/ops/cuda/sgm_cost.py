@@ -13,8 +13,10 @@ The preprocessing (`sgbm_preprocess`, `halfpix`) is elementwise torch, as
 the reference leaves it to XLA: `plane_stack` packs each image's six planes
 into one (H, W, 8) uint8 stack, so the kernel reads a pixel's planes as one
 8-byte load. The kernel takes the two stacks. On the H100 it is bound by
-integer operations (two BT costs per pixel, disparity and window column);
-see the source for the design.
+integer operations (two BT costs per pixel, disparity and window column):
+it unpacks each staged column once for the block, computes both planes'
+BT costs in the two 16-bit halves of one word, and computes each pixel cost
+about once an output; see the source for the design.
 
 `sgm_cost_volume` launches the kernel for CUDA tensors and runs
 `sgm_cost_volume_plain` for CPU tensors; any other device raises.

@@ -3,9 +3,11 @@
 Replaces `rt_depth_map_tpu/ops/pallas/sgm_bidir.py` `sgm_horiz_bidir_dh`.
 As on the TPU, it works on an x-major volume that K12 (`vol_transpose`)
 writes: the TPU's is (W1, D, H), the port's (W1, H, D) with D contiguous. A
-warp walks each row with D spread over its lanes (`csrc/sgm_path.cuh`, the
-design of arXiv 1610.04121). The kernel is bound by each row's serial chain
-and by device memory bytes.
+warp walks a row with D spread over its lanes (the step of
+`csrc/sgm_path.cuh`, the design of arXiv 1610.04121). One launch runs both
+directions at once, two warps a row that meet in the middle as the TPU
+kernel's chains do, each fed from a ring of `cp.async` copies in shared
+memory. The kernel is bound by device memory bytes.
 
 Also holds the plain SGM recurrence (`sgm_step`, `aggregate_dir`) of
 `rt_depth_map_tpu/ops/sgbm.py`, which the plain versions of K5 and of the
