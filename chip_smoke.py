@@ -24,7 +24,16 @@ the script exits non-zero:
      700x1000, D=64 one (K12 also in the TPU's 3-D form; K5 also at a W1
      that leaves its last band of columns ragged); the chained passes
      (K9a/K9b, K9c/K11, K9d: both senses, with and without a partial, int16
-     and int32) at the stretch point 1920x1080, D=256 and at the odd shape;
+     and int32) at the stretch point 1920x1080, D=256 and at the odd shape,
+     K9c and K9d also timed at the flagship shape (K9d top-down is cv2
+     MODE_SGBM's call); the vertical kernel shared by K5, K9c and K9d at
+     D=100 (its register path) and at widths beyond 16 one-column warps on
+     each SM (H=48, W1=3712, D=64; 16 rows at W1=3712, D=128), each making
+     one CUDA launch a call (K5 two; the library's own count); K2 at widths
+     and heights a block does not hold (64x2881, 1428x96: chunked rows and
+     columns, capped and uncapped); at 3840x2160 D=128 the frame program,
+     detect_objects and the speckle filter against their plain versions,
+     and both 8-path routes on one volume (W1 = 3712);
      K3, K6 and K7 at all three (K3 also with an int32 volume, bs 11, at
      the flagship and odd shapes); K4 must make one CUDA launch a call
      (the library's own count); the bidir and chained 8-path routes timed
@@ -393,11 +402,13 @@ def main() -> int:
         sgm_vert_pass_plain,
     )
     from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz, sgm_horiz_plain
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import chained_plan
     from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (
-        band_cols,
+        k5_plan,
         sgm_vert_wta,
         sgm_vert_wta_plain,
     )
+    from rt_depth_map_tpu_torch.ops.detect import detect_objects
     from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import (
         vol_transpose,
         vol_transpose_plain,
@@ -427,9 +438,13 @@ def main() -> int:
               f"{len(regs)} kernels, registers {min(regs, default=0)}-"
               f"{max(regs, default=0)}, spill stores {spills} bytes", flush=True)
         if spills:
+            func = ""
             for ln in log.splitlines():
+                if "Function properties for " in ln:
+                    func = ln.split("Function properties for ")[1].strip()
                 if "bytes spill stores" in ln and not ln.strip().startswith("0 bytes"):
-                    print(f"phase 2 build {stem} spills: {ln.strip()}", flush=True)
+                    print(f"phase 2 build {stem} spills: {func}: {ln.strip()}",
+                          flush=True)
     print(f"phase 2 build total (parallel): {time.perf_counter() - t0:.1f} s",
           flush=True)
 
@@ -444,19 +459,20 @@ def main() -> int:
     stats = {}
 
     def check(wrapper, kernel_fn, plain_fn, what, bound=None, library_fn=None,
-              plain_reps=15, timed=True):
+              plain_reps=15, timed=True, primary=True):
         """Exact equality, then timing (timed=False: a variant case, checked
-        only); the first timed case of a kernel is the one its summary
-        reports, and every timed case is listed under its `cases` (bound:
-        (in_bytes, out_bytes, ops); library_fn: one PyTorch call computing
-        the same function, timed beside every timed case that has one)."""
+        only); the first timed primary case of a kernel is the one its
+        summary reports, and every timed case is listed under its `cases`
+        (bound: (in_bytes, out_bytes, ops); library_fn: one PyTorch call
+        computing the same function, timed beside every timed case that has
+        one)."""
         err = _max_abs_err(kernel_fn(), plain_fn())
         if err != 0:
             raise AssertionError(f"{wrapper.__name__} {what}: kernel != plain "
                                  f"(max |err| {err})")
         if not timed:
-            stats[wrapper.__name__]["max_abs_err"] = max(
-                stats[wrapper.__name__]["max_abs_err"], err)
+            entry = stats.setdefault(wrapper.__name__, dict(max_abs_err=0, cases=[]))
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
             print(f"phase 3 {wrapper.__name__} {what}: exact", flush=True)
             return
         ms = _time_ms(kernel_fn)
@@ -469,10 +485,10 @@ def main() -> int:
             line += f", library {lib_ms:.4f} ms"
         case = dict(what=what, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=lib_ms)
-        if wrapper.__name__ not in stats:
-            stats[wrapper.__name__] = dict(max_abs_err=0, cases=[], **{
-                k: v for k, v in case.items() if k != "what"})
-        stats[wrapper.__name__]["cases"].append(case)
+        entry = stats.setdefault(wrapper.__name__, dict(max_abs_err=0, cases=[]))
+        if primary and "ms" not in entry:
+            entry.update({k: v for k, v in case.items() if k != "what"})
+        entry["cases"].append(case)
         stats[wrapper.__name__]["max_abs_err"] = max(
             stats[wrapper.__name__]["max_abs_err"], err)
         print(line + ")", flush=True)
@@ -633,6 +649,27 @@ def main() -> int:
               what + " top-down", timed=False)
         return outs
 
+    def chained_flagship(C, what):
+        """K9c and K9d at the flagship shape (cv2 MODE_SGBM's K9d call is
+        top-down on the horizontal sum), timed beside the stretch point's
+        cases, which the summary reports."""
+        n = C.numel()
+        h2 = sgm_horiz_pass(C, p1, p2, True, sgm_horiz_pass(C, p1, p2))
+        Sa = sgm_vert_pass(C, p1, p2, partial=h2)
+        check(sgm_vert_pass, lambda: sgm_vert_pass(C, p1, p2, partial=h2),
+              lambda: sgm_vert_pass_plain(C, p1, p2, partial=h2),
+              what + " top-down + partial",
+              bound=(_nbytes(C, h2), _nbytes(Sa), 3 * 8 * n), plain_reps=1,
+              primary=False)
+        for rev, case in ((True, " bottom-up"), (False, " top-down (MODE_SGBM)")):
+            part = Sa if rev else h2
+            outs = sgm_final_wta(C, part, p1, p2, ur, rev)
+            check(sgm_final_wta, lambda: sgm_final_wta(C, part, p1, p2, ur, rev),
+                  lambda: sgm_final_wta_plain(C, part, p1, p2, ur, rev),
+                  what + case,
+                  bound=(_nbytes(C, part), _nbytes(*outs), 3 * 8 * n + 8 * n),
+                  plain_reps=1, primary=False)
+
     flagship = (H, W, D)
     for (h, w, d) in (flagship, STRETCH, ODD):
         if (h, w, d) == STRETCH:
@@ -661,7 +698,8 @@ def main() -> int:
             outs = bidir_checks(C, what)
             # K5 where the last band of columns is ragged
             W1 = w - d
-            cols = band_cols(W1, dev)
+            plan = k5_plan(W1, d, C.element_size(), dev)
+            cols = plan.warps * plan.m
             W1r = W1 - 1 if W1 % cols == 0 else W1
             Cr, Shr = C[:, :W1r].contiguous(), torch.zeros_like(C[:, :W1r], dtype=torch.int32)
             check(sgm_vert_wta, lambda: sgm_vert_wta(Cr, Shr, p1, p2, ur),
@@ -669,7 +707,9 @@ def main() -> int:
                   f"{h}x{W1r + d} D={d} (W1 {W1r}: bands of {cols}, the last "
                   f"of {W1r - (W1r - 1) // cols * cols})", timed=False)
             del Cr, Shr
-        if (h, w, d) != flagship:
+        if (h, w, d) == flagship:
+            chained_flagship(C, what)
+        else:
             outs_c = chained_checks(C, what)
             if (h, w, d) == ODD and _max_abs_err(outs_c, outs) != 0:
                 raise AssertionError(f"{what}: the chained route's winners differ "
@@ -747,6 +787,116 @@ def main() -> int:
     check(vol_transpose, lambda: vol_transpose(xt), lambda: vol_transpose_plain(xt),
           "TPU form (1152, 128, 768) int16", bound=(_nbytes(xt), _nbytes(xt), 0))
     del xt
+
+    # the vertical kernel off the frame programs' shapes: D = 100 (pixels
+    # that are not whole 16-byte pieces: the register path) on the odd
+    # crop, and a volume wider than 16 one-column warps on each SM (H = 48,
+    # W1 = 3712 at D = 64, and 3840x2160's W1 = 3712 at D = 128 on 16 rows)
+    rng = np.random.default_rng(7)
+    oh, ow, _ = ODD
+    lr_o, rr_o = lrect[:oh, :ow].contiguous(), rrect[:oh, :ow].contiguous()
+    vols = [("700x1000 D=100", sgm_cost_volume(sg.plane_stack(lr_o, m.pre_filter_cap),
+                                               sg.plane_stack(rr_o, m.pre_filter_cap),
+                                               100, BS, torch.int16)[0])]
+    for vh, vw1, vd in ((48, 3712, 64), (16, 3712, 128)):
+        vols.append((f"{vh}x{vw1} D={vd} (random)", torch.from_numpy(
+            rng.integers(0, 2300, (vh, vw1, vd))).to(torch.int16).to(dev)))
+    for what, Cv in vols:
+        vw1, vd = Cv.shape[1:]
+        h2 = sgm_horiz_pass(Cv, p1, p2, True, sgm_horiz_pass(Cv, p1, p2))
+        for rev in (False, True):
+            sense = "bottom-up" if rev else "top-down"
+            check(sgm_vert_pass, lambda r=rev: sgm_vert_pass(Cv, p1, p2, r, h2),
+                  lambda r=rev: sgm_vert_pass_plain(Cv, p1, p2, r, h2),
+                  f"{what} {sense} + partial", timed=False)
+            check(sgm_final_wta, lambda r=rev: sgm_final_wta(Cv, h2, p1, p2, ur, r),
+                  lambda r=rev: sgm_final_wta_plain(Cv, h2, p1, p2, ur, r),
+                  f"{what} {sense}", timed=False)
+        Shv = h2.to(torch.int32)
+        check(sgm_vert_wta, lambda: sgm_vert_wta(Cv, Shv, p1, p2, ur),
+              lambda: sgm_vert_wta_plain(Cv, Shv, p1, p2, ur), what, timed=False)
+        print(f"phase 3 vertical plans {what}: K5 {k5_plan(vw1, vd, 2, dev)}, K9c "
+              f"{chained_plan(vw1, vd, 2, False, dev)}, K9d "
+              f"{chained_plan(vw1, vd, 2, True, dev)}", flush=True)
+        # each wrapper's CUDA launches of the vertical kernel, from the
+        # library's own count: one for K9c and K9d, two for K5
+        for lib_name, call, want in (
+                ("sgm_hdw", lambda: sgm_vert_pass(Cv, p1, p2, False, h2), 1),
+                ("sgm_hdw", lambda: sgm_final_wta(Cv, h2, p1, p2, ur, True), 1),
+                ("sgm_vert_wta", lambda: sgm_vert_wta(Cv, Shv, p1, p2, ur), 2)):
+            count = ctypes.c_int.in_dll(_build.load(lib_name),
+                                        "rtdm_sgm_vert_kernel_launches")
+            before = count.value
+            call()
+            if count.value - before != want:
+                raise AssertionError(f"{what}: {count.value - before} CUDA launches "
+                                     f"of the vertical kernel in a call, not {want}")
+        print(f"phase 3 vertical kernel {what}: K9c 1, K9d 1, K5 2 CUDA launches "
+              f"a call", flush=True)
+        del Cv, h2, Shv
+    del vols
+
+    # K2 where a row (W > 2880) or a column (H > 1427) does not fit a block:
+    # chunked phases, capped and at the fixed point
+    for kh, kw in ((64, 2881), (1428, 96)):
+        blobs = np.zeros((kh, kw), bool)
+        for _ in range(40):
+            y, x = rng.integers(0, kh), rng.integers(0, kw)
+            blobs[y: y + rng.integers(2, kh // 2 + 3), x: x + rng.integers(2, kw // 3 + 3)] = True
+        blobs |= rng.random((kh, kw)) < 0.02
+        bm_t = torch.from_numpy(blobs).to(dev)
+        for rounds in (CC_MAX_ROUNDS, None):
+            check(seg_min_propagate,
+                  lambda b=bm_t, r=rounds: connected_components_bbox(b, 8, max_rounds=r),
+                  lambda b=bm_t, r=rounds: connected_components_bbox(b, 8, max_rounds=r,
+                                                                     plain=True),
+                  f"{kh}x{kw} blobs (chunked, cap {rounds})", timed=False)
+
+    # -- 3840x2160 D=128: the frame program, both 8-path routes on one
+    # volume, detect and the speckle filter against their plain versions --
+    uh, uw = 2160, 3840
+    u_eng = _engine("sgm", uw, uh)
+    ul_np, ur_np, _, _ = _source(uw, uh).render(0)
+    uleft = torch.from_numpy(ul_np).to(dev)
+    uright = torch.from_numpy(ur_np).to(dev)
+    ures = u_eng.frame_program(uleft, uright)
+    _sync()
+    u_ms = _wall_ms(lambda: u_eng.frame_program(uleft, uright), reps=3)
+    boxes = detect_objects(ures["mask"], u_eng.state.min_object_size, u_eng.cfg.max_objects)
+    if not torch.equal(boxes, detect_objects(ures["mask"], u_eng.state.min_object_size,
+                                             u_eng.cfg.max_objects, plain=True)):
+        raise AssertionError("detect_objects at 3840x2160 != its plain version")
+    print(f"phase 3 {uw}x{uh} D={D}: frame program {u_ms:.3f} ms (bidir route); "
+          f"detect_objects equals its plain version ({int(boxes[:, 4].sum())} "
+          f"boxes)", flush=True)
+    ust = u_eng.state
+    ulr = remap_bilinear(rgb_to_gray(uleft), ust.left, plain=True)
+    urr = remap_bilinear(rgb_to_gray(uright), ust.right, plain=True)
+    del ures, uleft, uright
+    Cu = sgm_cost_volume(sg.plane_stack(ulr, m.pre_filter_cap),
+                         sg.plane_stack(urr, m.pre_filter_cap), D, BS,
+                         sg.volume_dtype(BS, m.pre_filter_cap))[0]
+    bid_ms = _time_ms(lambda: sg.aggregate_bidir(Cu, p1, p2, ur), reps=3, warm=1)
+    chn_ms = _time_ms(lambda: sg.aggregate_chained(Cu, 8, p1, p2, ur), reps=3, warm=1)
+    outs_u = sg.aggregate_bidir(Cu, p1, p2, ur)
+    if _max_abs_err(outs_u, sg.aggregate_chained(Cu, 8, p1, p2, ur)) != 0:
+        raise AssertionError(f"{uw}x{uh} D={D}: the bidir and chained routes differ")
+    print(f"phase 3 routes {uw}x{uh} D={D} (W1 {uw - D}): the same winners; bidir "
+          f"(K12, K4, K12, K5) {bid_ms:.4f} ms, chained (K9a, K9a, K9c, K9d) "
+          f"{chn_ms:.4f} ms", flush=True)
+    del Cu
+    udisp = torch.full((uh, uw), -16, dtype=torch.int16, device=dev)
+    udisp[:, D:] = torch.where(outs_u[3] != 0, -16, outs_u[2]).to(torch.int16)
+    del outs_u
+    got = filter_speckles(udisp, -16, m.speckle_window_size, m.speckle_range * 16)
+    if not torch.equal(got, filter_speckles(udisp, -16, m.speckle_window_size,
+                                            m.speckle_range * 16, plain=True)):
+        raise AssertionError("the speckle filter at 3840x2160 != its plain version")
+    print(f"phase 3 speckle {uw}x{uh}: equals its plain version "
+          f"({int((got != -16).sum())} of {int((udisp != -16).sum())} pixels kept)",
+          flush=True)
+    del u_eng, udisp, got
+    torch.cuda.empty_cache()
 
     # the speckle path under the cap: a snake disparity whose value-edge
     # propagation needs more than 16 sweeps

@@ -20,23 +20,20 @@
 //                        winner-take-all, uniqueness and subpixel: sgm_hdw.py
 //                        sgm_final_wta_hdw (K9d, either sense).
 //
-// Every launch is the scan of sgm_path.cuh: one warp per scanline, D over
-// the lanes, all arithmetic in int32 registers. As on the TPU, the outputs
-// of the first two entry points take C's element type: with int16 C they
-// hold at most five directions' sums, which fit int16 (the wrapper checks
-// the bound on P1 and P2; volume_dtype bounds C). The final pass adds its
-// first two directions into an int32 scratch volume (a partial of five
-// directions plus two more need not fit int16) and its last launch never
-// writes S: each warp holds its pixel's full sum in registers for the WTA.
-//
-// What bounds them on the H100: device memory bytes for the vertical sets
-// (each launch reads C and the running sum and writes the sum: 6 bytes per
-// element at int16, ~2.7 GB per direction at 1920x1080, D = 256), and the
-// serial chain of each row for a horizontal pass (W1 dependent steps with
-// only H warps in flight). The prefetch ring of sgm_path.cuh keeps the
-// loads of the next pixels in flight while the chain runs.
+// The horizontal pass is the warp-per-row scan of sgm_path.cuh: W1
+// dependent steps with only H warps in flight bound it. The two vertical
+// entry points are one cooperative launch each of the row-synchronous scan
+// of sgm_vert.cuh, K5's kernel: all three directions of a sense in one walk
+// over the rows, reading C and the partial once and writing the sum once
+// (6 bytes an element at int16), or doing the winner-take-all from
+// registers (4 bytes an element). As on the TPU, the outputs of the first
+// two entry points take C's element type: with int16 C they hold at most
+// five directions' sums, which fit int16 (the wrapper checks the bound on
+// P1 and P2; volume_dtype bounds C). The final pass never stores a sum:
+// each pixel's total of the partial and the three directions stays in
+// int32 registers for the WTA.
 
-#include "sgm_path.cuh"
+#include "sgm_vert.cuh"
 
 // C, partial, out: (H, W1, D), or (W1, H, D) when x_major, all int16
 // (c_bytes 2) or all int32 (c_bytes 4); partial may be null. out = L of the
@@ -53,65 +50,60 @@ extern "C" int rtdm_sgm_horiz_pass(const void* C, int c_bytes,
     CT* O = (CT*)out;
     if (partial == nullptr)
       return sgm_launch<SGM_WRITE>(Cv, (const CT*)nullptr, O, H, W1, D,
-                                   x_major != 0, p1, p2, 0, dx, SGM_NO_WTA, s);
+                                   x_major != 0, p1, p2, dx, s);
     return sgm_launch<SGM_ADD>(Cv, (const CT*)partial, O, H, W1, D,
-                               x_major != 0, p1, p2, 0, dx, SGM_NO_WTA, s);
+                               x_major != 0, p1, p2, dx, s);
   });
 }
 
 // C, partial, out: (H, W1, D), all int16 (c_bytes 2) or all int32; partial
 // may be null. out = partial + L(dy,0) + L(dy,+1) + L(dy,-1), dy = reverse ?
-// -1 : +1: the first launch reads the partial (or writes), the next two add
-// in place. Requires D <= 256.
+// -1 : +1. warps, m: the band plan (ops/cuda/sgm_vert_wta.py vert_plan);
+// edge: ceil(W1 / (warps * m)) * 4 * D zeroed 64-bit words. Requires
+// D <= 256. One cooperative launch.
 extern "C" int rtdm_sgm_vert_pass(const void* C, int c_bytes,
-                                  const void* partial, void* out, int H,
-                                  int W1, int D, int reverse, int p1, int p2,
-                                  void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int dy = reverse ? -1 : 1;
+                                  const void* partial, void* out, void* edge,
+                                  int H, int W1, int D, int warps, int m,
+                                  int reverse, int p1, int p2, void* stream) {
+  const SgmWtaOut none = {nullptr, nullptr, nullptr, nullptr, 0};
   return (int)sgm_by_ctype(c_bytes, [&](auto tag) {
     using CT = decltype(tag);
-    const CT* Cv = (const CT*)C;
-    CT* O = (CT*)out;
-    cudaError_t err =
-        partial == nullptr
-            ? sgm_launch<SGM_WRITE>(Cv, (const CT*)nullptr, O, H, W1, D, false,
-                                    p1, p2, dy, 0, SGM_NO_WTA, s)
-            : sgm_launch<SGM_ADD>(Cv, (const CT*)partial, O, H, W1, D, false,
-                                  p1, p2, dy, 0, SGM_NO_WTA, s);
-    for (int dx = 1; dx >= -1 && err == cudaSuccess; dx -= 2)
-      err = sgm_launch<SGM_ADD>(Cv, (const CT*)O, O, H, W1, D, false, p1, p2,
-                                dy, dx, SGM_NO_WTA, s);
-    return err;
+    return vb_launch<CT, CT, CT, false>(
+        (const CT*)C, (const CT*)partial, (CT*)out, H, W1, D, warps, m,
+        reverse, 1u, p1, p2, (vb_word*)edge, none, (cudaStream_t)stream);
   });
 }
 
-// C, partial: (H, W1, D), both int16 (c_bytes 2) or both int32; scratch:
-// (H, W1, D) int32; best, minS, dval, uniq: (H, W1) int32. The total
-// S = partial + L(dy,0) + L(dy,+1) + L(dy,-1), dy = reverse ? -1 : +1:
-// (dy,0) and (dy,+1) go into the scratch, and the (dy,-1) launch does the
-// winner-take-all on the complete sum. Requires D <= 256.
+// C, partial: (H, W1, D), both int16 (c_bytes 2) or both int32; best,
+// minS, dval, uniq: (H, W1) int32: the winner-take-all of
+// S = partial + L(dy,0) + L(dy,+1) + L(dy,-1), dy = reverse ? -1 : +1.
+// warps, m, edge: as for rtdm_sgm_vert_pass. Requires D <= 256. One
+// cooperative launch.
 extern "C" int rtdm_sgm_final_wta(const void* C, int c_bytes,
-                                  const void* partial, void* scratch, int H,
-                                  int W1, int D, int reverse, int p1, int p2,
-                                  int uniqueness_ratio, void* best, void* minS,
-                                  void* dval, void* uniq, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int dy = reverse ? -1 : 1;
+                                  const void* partial, void* edge, int H,
+                                  int W1, int D, int warps, int m, int reverse,
+                                  int p1, int p2, int uniqueness_ratio,
+                                  void* best, void* minS, void* dval,
+                                  void* uniq, void* stream) {
   const SgmWtaOut out = {(int32_t*)best, (int32_t*)minS, (int32_t*)dval,
                          (int32_t*)uniq, uniqueness_ratio};
-  int32_t* S = (int32_t*)scratch;
   return (int)sgm_by_ctype(c_bytes, [&](auto tag) {
     using CT = decltype(tag);
-    const CT* Cv = (const CT*)C;
-    cudaError_t err = sgm_launch<SGM_ADD>(Cv, (const CT*)partial, S, H, W1, D,
-                                          false, p1, p2, dy, 0, SGM_NO_WTA, s);
-    if (err != cudaSuccess) return err;
-    err = sgm_launch<SGM_ADD>(Cv, (const int32_t*)S, S, H, W1, D, false, p1,
-                              p2, dy, 1, SGM_NO_WTA, s);
-    if (err != cudaSuccess) return err;
-    return sgm_launch<SGM_WTA>(Cv, (const int32_t*)S, (int32_t*)nullptr, H, W1,
-                               D, false, p1, p2, dy, -1, out, s);
+    return vb_launch<CT, CT, CT, true>(
+        (const CT*)C, (const CT*)partial, (CT*)nullptr, H, W1, D, warps, m,
+        reverse, 1u, p1, p2, (vb_word*)edge, out, (cudaStream_t)stream);
+  });
+}
+
+// Blocks of the vertical pass (wta 0) or the final pass (wta 1) resident
+// at once on the current device, for a band of `warps` warps of m columns;
+// into *blocks.
+extern "C" int rtdm_sgm_vert_resident(int c_bytes, int wta, int D, int warps,
+                                      int m, int* blocks) {
+  return (int)sgm_by_ctype(c_bytes, [&](auto tag) {
+    using CT = decltype(tag);
+    return wta ? vb_resident<CT, CT, CT, true>(D, warps, m, blocks)
+               : vb_resident<CT, CT, CT, false>(D, warps, m, blocks);
   });
 }
 

@@ -1,10 +1,9 @@
-// One SGM path direction over a D-contiguous cost volume: a warp per
-// scanline, D spread over the 32 lanes (the design of arXiv 1610.04121).
-//
-// The scan kernel serves sgm_horiz.cu (K4) and sgm_hdw.cu (K9a-K9d, K11);
-// sgm_vert_wta.cu (K5) has its own row-synchronous kernel and shares only
-// the step (sgm_step) and the winner-take-all (sgm_wta). The recurrence is
-// that of rt_depth_map_tpu/ops/sgbm.py _sgm_step / _aggregate_dir:
+// The SGM step and winner-take-all shared by the port's scans, and the
+// horizontal scan of the chained passes K9a/K9b (sgm_hdw.cu). K4
+// (sgm_horiz.cu) shares the step (sgm_step); the row-synchronous vertical
+// kernel (sgm_vert.cuh: K5, K9c, K9d, K11) shares the step and the
+// winner-take-all (sgm_wta). The recurrence is that of
+// rt_depth_map_tpu/ops/sgbm.py _sgm_step / _aggregate_dir:
 //
 //   L(p, d) = C(p, d) + min(Lp(d), Lp(d-1) + P1, Lp(d+1) + P1, minLp + P2)
 //             - (minLp + P2)
@@ -13,33 +12,28 @@
 // first pixel of a scanline, including scanlines that enter from a side
 // column), minLp its minimum over d, and Lp(-1) = Lp(D) = MAX_COST. L, the
 // running sums and minS can be negative; every value is held in int32 in
-// registers, whatever the element types of the volumes in memory.
+// registers, whatever the element types of the volumes in memory. Lane l
+// of a warp holds d = l * K + k for k < K.
 //
-// A pixel (y, x) follows (y - dy, x - dx) on the path of direction
-// (dy, dx). A scanline starts at each pixel whose predecessor lies outside
-// the image: one per row for a horizontal direction, one per column for a
-// vertical one, and W1 + H - 1 for a diagonal one (the top or bottom row,
-// then the side column). Lane l holds d = l * K + k for k < K; a warp moves
-// one pixel per step, so each step reads C(p, :) and the running sum S(p, :)
-// as D contiguous elements (one coalesced transaction per warp).
-//
-// The volumes hold each pixel's D-vector contiguously; pixel (y, x) starts
-// at element y * sy + x * sx: sy = W1 * D, sx = D for the row-major
-// (H, W1, D) layout, sy = D, sx = H * D for the x-major (W1, H, D) layout.
+// The horizontal scan (sgm_path_kernel): a warp per row, D spread over the
+// 32 lanes (the design of arXiv 1610.04121); a pixel (y, x) follows
+// (y, x - dx). Each step reads C(p, :) and the running sum S(p, :) as D
+// contiguous elements (one coalesced transaction per warp). The volumes
+// hold each pixel's D-vector contiguously; pixel (y, x) starts at element
+// y * sy + x * sx: sy = W1 * D, sx = D for the row-major (H, W1, D)
+// layout, sy = D, sx = H * D for the x-major (W1, H, D) layout.
 //
 // Modes (what a step does with L):
 //   SGM_WRITE   S_out(p) = L                   (first direction)
 //   SGM_ADD     S_out(p) = S_in(p) + L         (S_in may equal S_out)
-//   SGM_WTA     S = S_in(p) + L is the pixel's total; the warp writes the
-//               winner-take-all outputs best, minS, dval and uniq
-//               (rt_depth_map_tpu/ops/sgbm.py wta_uniq_subpix)
 // C, S_in and S_out each have their own element type (CT, SI, SO: int16 or
 // int32); a sum is stored in SO by truncation, so the caller guarantees
 // that it fits.
 //
 // The loads of the next SGM_PF pixels are issued before the current
-// pixel's step, so a warp keeps several rows of memory requests in flight
-// while its dependent chain (a warp min, two shuffles) runs.
+// pixel's step. That does not keep them in flight as meant: the compiler
+// moves the loaded values between registers, and a move waits for its
+// load (the vertical kernel and K4 use rings of cp.async copies instead).
 
 #pragma once
 
@@ -51,7 +45,7 @@
 #define SGM_FULL 0xffffffffu
 #define SGM_PF 4
 
-enum { SGM_WRITE = 0, SGM_ADD = 1, SGM_WTA = 2 };
+enum { SGM_WRITE = 0, SGM_ADD = 1 };
 
 struct SgmWtaOut {
   int32_t* best;
@@ -60,45 +54,6 @@ struct SgmWtaOut {
   int32_t* uniq;
   int uniqueness_ratio;
 };
-
-// Start pixel and length of scanline `line` of direction (dy, dx).
-__device__ __forceinline__ void sgm_scanline(int line, int H, int W1, int dy,
-                                             int dx, int* y0, int* x0,
-                                             int* len) {
-  if (dy == 0) {  // one scanline per row
-    *y0 = line;
-    *x0 = dx > 0 ? 0 : W1 - 1;
-    *len = W1;
-    return;
-  }
-  const int ytop = dy > 0 ? 0 : H - 1;
-  if (dx == 0) {  // one scanline per column
-    *y0 = ytop;
-    *x0 = line;
-    *len = H;
-    return;
-  }
-  int y, x;
-  if (line < W1) {  // enters from the first row of the scan
-    y = ytop;
-    x = line;
-  } else {  // enters from the side column the diagonal leaves behind
-    const int k = line - W1 + 1;
-    y = dy > 0 ? k : H - 1 - k;
-    x = dx > 0 ? 0 : W1 - 1;
-  }
-  const int rows = dy > 0 ? H - y : y + 1;
-  const int cols = dx > 0 ? W1 - x : x + 1;
-  *y0 = y;
-  *x0 = x;
-  *len = rows < cols ? rows : cols;
-}
-
-__host__ __device__ inline int sgm_num_lines(int H, int W1, int dy, int dx) {
-  if (dy == 0) return H;
-  if (dx == 0) return W1;
-  return W1 + H - 1;
-}
 
 // One recurrence step of a warp: L(p, :) from the pixel's cost c and the
 // predecessor's Lp (lane l holds d = d0 + k = l * K + k; ok[k]: d < D).
@@ -178,15 +133,14 @@ template <typename CT, typename SI, typename SO, int K, int MODE>
 __global__ void __launch_bounds__(128)
 sgm_path_kernel(const CT* __restrict__ C, const SI* S_in, SO* S_out,
                 int H, int W1, int D, long long sy, long long sx, int p1,
-                int p2, int dy, int dx, SgmWtaOut wta) {
+                int p2, int dx) {
   const int lane = threadIdx.x & 31;
-  const int line = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (line >= sgm_num_lines(H, W1, dy, dx)) return;
-  int y0, x0, len;
-  sgm_scanline(line, H, W1, dy, dx, &y0, &x0, &len);
-
-  const long long step = dy * sy + dx * sx;  // elements per pixel step
-  const long long base = y0 * sy + x0 * sx + lane * K;
+  const int y = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (y >= H) return;
+  const int len = W1;
+  const long long step = dx * sx;  // elements per pixel step
+  const long long base = y * sy + (dx > 0 ? 0 : (long long)(W1 - 1) * sx) +
+                         lane * K;
   const int d0 = lane * K;
   bool ok[K];
 #pragma unroll
@@ -241,58 +195,40 @@ sgm_path_kernel(const CT* __restrict__ C, const SI* S_in, SO* S_out,
         for (int k = 0; k < K; ++k) Lp[k] = L[k];
 
         const long long o = base + (long long)s * step;
-        if (MODE == SGM_WRITE || MODE == SGM_ADD) {
 #pragma unroll
-          for (int k = 0; k < K; ++k)
-            if (ok[k])
-              S_out[o + k] = (SO)((MODE == SGM_ADD ? sv[k] : 0) + L[k]);
-        } else {
-          int tot[K];
-#pragma unroll
-          for (int k = 0; k < K; ++k) tot[k] = sv[k] + L[k];
-          sgm_wta<K>(tot, ok, d0, D, lane, wta,
-                     (long long)(y0 + s * dy) * W1 + x0 + s * dx);
-        }
+        for (int k = 0; k < K; ++k)
+          if (ok[k])
+            S_out[o + k] = (SO)((MODE == SGM_ADD ? sv[k] : 0) + L[k]);
       }
     }
   }
 }
 
-// Launch one direction; K = disparities per lane (D <= 32 * K).
-template <typename CT, typename SI, typename SO, int MODE>
-static cudaError_t sgm_launch_k(const CT* C, const SI* S_in, SO* S_out, int H,
-                                int W1, int D, long long sy, long long sx,
-                                int p1, int p2, int dy, int dx, SgmWtaOut wta,
-                                cudaStream_t stream) {
-  const int lines = sgm_num_lines(H, W1, dy, dx);
-  const int warps = 4;
-  const dim3 grid((lines + warps - 1) / warps);
-  const dim3 block(32 * warps);
-  if (D <= 32)
-    sgm_path_kernel<CT, SI, SO, 1, MODE><<<grid, block, 0, stream>>>(
-        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
-  else if (D <= 64)
-    sgm_path_kernel<CT, SI, SO, 2, MODE><<<grid, block, 0, stream>>>(
-        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
-  else if (D <= 128)
-    sgm_path_kernel<CT, SI, SO, 4, MODE><<<grid, block, 0, stream>>>(
-        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
-  else
-    sgm_path_kernel<CT, SI, SO, 8, MODE><<<grid, block, 0, stream>>>(
-        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dy, dx, wta);
-  return cudaGetLastError();
-}
-
-// x_major: the volumes are (W1, H, D) instead of (H, W1, D).
+// Launch one horizontal direction dx over every row; K = disparities per
+// lane (D <= 32 * K). x_major: the volumes are (W1, H, D) instead of
+// (H, W1, D).
 template <int MODE, typename CT, typename SI, typename SO>
 static cudaError_t sgm_launch(const CT* C, const SI* S_in, SO* S_out, int H,
                               int W1, int D, bool x_major, int p1, int p2,
-                              int dy, int dx, SgmWtaOut wta,
-                              cudaStream_t stream) {
+                              int dx, cudaStream_t stream) {
   const long long sy = x_major ? D : (long long)W1 * D;
   const long long sx = x_major ? (long long)H * D : D;
-  return sgm_launch_k<CT, SI, SO, MODE>(C, S_in, S_out, H, W1, D, sy, sx, p1,
-                                        p2, dy, dx, wta, stream);
+  const int warps = 4;
+  const dim3 grid((H + warps - 1) / warps);
+  const dim3 block(32 * warps);
+  if (D <= 32)
+    sgm_path_kernel<CT, SI, SO, 1, MODE><<<grid, block, 0, stream>>>(
+        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dx);
+  else if (D <= 64)
+    sgm_path_kernel<CT, SI, SO, 2, MODE><<<grid, block, 0, stream>>>(
+        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dx);
+  else if (D <= 128)
+    sgm_path_kernel<CT, SI, SO, 4, MODE><<<grid, block, 0, stream>>>(
+        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dx);
+  else
+    sgm_path_kernel<CT, SI, SO, 8, MODE><<<grid, block, 0, stream>>>(
+        C, S_in, S_out, H, W1, D, sy, sx, p1, p2, dx);
+  return cudaGetLastError();
 }
 
 // f(CT{}) with CT the cost volume's element type: int16 (c_bytes 2) or int32.
@@ -302,4 +238,3 @@ static cudaError_t sgm_by_ctype(int c_bytes, F f) {
   return f(int32_t{});
 }
 
-static const SgmWtaOut SGM_NO_WTA = {nullptr, nullptr, nullptr, nullptr, 0};

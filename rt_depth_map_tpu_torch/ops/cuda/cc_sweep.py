@@ -11,7 +11,10 @@ On the H100 the whole propagation is one cooperative launch that loops over
 the trips on the device, with grid barriers between its phases (a hop and
 row run-min phase, then a column run-min phase, per sweep; each recomputes
 only the rows or column tiles whose inputs the sweep before changed), and
-stops there when a trip changed nothing (`csrc/cc_sweep.cu`). Nothing in a call
+stops there when a trip changed nothing (`csrc/cc_sweep.cu`). A row or a
+column tile too long for a block's shared memory is scanned in chunks
+(`cc_chunks`), with each chunk's carries from both sides, so any frame size
+runs and gives the same labels after every sweep. Nothing in a call
 waits for the device: the sweep count is left in
 `seg_min_propagate.last_rounds`, a 1-element int32 tensor on the device,
 which a caller reads after its own synchronise.
@@ -22,6 +25,8 @@ which a caller reads after its own synchronise.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -29,6 +34,10 @@ import torch
 from rt_depth_map_tpu_torch.ops.cuda import _build
 
 BIG = 2**30
+#: warps of a K2 block, and most chunks of a row or a column (CC_WARPS and
+#: CC_MAX_CHUNKS in `csrc/cc_sweep.cu`)
+CC_WARPS = 16
+CC_MAX_CHUNKS = 32
 #: propagation sweeps when no cap is given (the fixed point is reached long
 #: before on any image this port handles)
 UNCAPPED = 2**30
@@ -110,14 +119,62 @@ def pack_edges(allowed_h, allowed_v, allowed_se=None, allowed_sw=None):
     return e
 
 
+def cc_row_bytes(wc: int) -> int:
+    """Shared memory of the row phase for chunks of wc pixels: a buffer of
+    wc + 32 int32 and wc edge bytes a warp (`cc_row_words`)."""
+    return CC_WARPS * 4 * (wc + 32 + (wc + 3) // 4)
+
+
+def cc_col_bytes(hc: int, chunked: bool) -> int:
+    """Shared memory of the column phase for chunks of hc rows: the 32-column
+    tile, the warps' aggregates, the chunk carries when the column has
+    several chunks, and the edge bytes."""
+    words = hc * 32 + 2 * CC_WARPS * 32 + (CC_MAX_CHUNKS * 32 if chunked else 0)
+    return 4 * words + 32 * hc
+
+
+def cc_chunks(H: int, W: int, smem_limit: int):
+    """(wc, hc): the chunk width of the row phase and height of the column
+    phase. The whole row (column) where it fits a block's shared memory,
+    else the longest chunk that does (a multiple of 32 pixels in a row).
+    Raises where a row or column would need more than CC_MAX_CHUNKS."""
+    wc = W
+    if cc_row_bytes(W) > smem_limit:
+        wc = 0
+        while cc_row_bytes(wc + 32) <= smem_limit:
+            wc += 32
+    hc = H
+    if cc_col_bytes(H, False) > smem_limit:
+        hc = (smem_limit - 4 * (2 * CC_WARPS * 32 + CC_MAX_CHUNKS * 32)) // 160
+    if wc < 32 and wc < W or hc < 1:
+        raise ValueError(f"cc_chunks: {smem_limit} bytes hold no chunk")
+    if -(-W // wc) > CC_MAX_CHUNKS or -(-H // hc) > CC_MAX_CHUNKS:
+        raise ValueError(f"cc_chunks: a {H}x{W} field needs more than "
+                         f"{CC_MAX_CHUNKS} chunks a row or column")
+    return wc, hc
+
+
 def _fn():
     lib = _build.load("cc_sweep")
     fn = lib.rtdm_cc_propagate
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
+        fn.argtypes = [P, P, P, P, I, I, I, I, I, I, I, P, P]
         fn.restype = I
+        lib.rtdm_cc_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        lib.rtdm_cc_smem_limit.restype = I
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def smem_limit(device) -> int:
+    """Shared memory a block may opt into on `device`."""
+    lib, _ = _fn()
+    limit = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.rtdm_cc_smem_limit(ctypes.byref(limit))
+    _build.check(lib, err, "seg_min_propagate")
+    return limit.value
 
 
 def seg_min_propagate(field: torch.Tensor, active: torch.Tensor,
@@ -159,9 +216,10 @@ def seg_min_propagate(field: torch.Tensor, active: torch.Tensor,
     cap = UNCAPPED if max_rounds is None else int(max_rounds)
     lib, fn = _fn()
     with torch.cuda.device(f.device):
+        wc, hc = cc_chunks(H, W, smem_limit(f.device))
         err = fn(out.data_ptr(), scratch.data_ptr(), active.data_ptr(),
                  edges.data_ptr(), N, H, W, int(allowed_se is not None), cap,
-                 state.data_ptr(), _build.stream_of(f))
+                 wc, hc, state.data_ptr(), _build.stream_of(f))
     seg_min_propagate.launches += 1
     _build.check(lib, err, "seg_min_propagate")
     seg_min_propagate.last_rounds = state[3:4]

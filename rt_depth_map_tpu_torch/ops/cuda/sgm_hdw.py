@@ -22,9 +22,13 @@ As on the TPU, the outputs of the first two take the cost volume's dtype:
 with an int16 volume a partial holds at most five directions, which fit
 int16 while 5 * (P2 - min(P1, 0)) <= 32768 (each direction's L lies in
 [C - P2 + min(P1, 0), C], and `volume_dtype` bounds 5 * C); the wrappers
-raise otherwise. Every pass is the warp-per-scanline scan of
-`csrc/sgm_path.cuh`; the vertical sets are bound by device memory bytes,
-the horizontal pass by each row's serial chain.
+raise otherwise. The horizontal pass is the warp-per-row scan of
+`csrc/sgm_path.cuh`, bound by each row's serial chain. The vertical pass
+and the final pass are one cooperative launch each of K5's row-synchronous
+kernel (`csrc/sgm_vert.cuh`): the three directions of a sense in one walk
+over the rows, bands of columns planned as K5's (`sgm_vert_wta.py`
+`plan_on_card`), reading C and the partial once and writing the sum once,
+or doing the winner-take-all from registers with no scratch volume.
 
 Each wrapper launches its kernels for CUDA tensors and runs its plain
 version for CPU tensors; any other device raises.
@@ -32,13 +36,21 @@ version for CPU tensors; any other device raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from rt_depth_map_tpu_torch.ops.cuda import _build
 from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import aggregate_dir
-from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import wta_uniq_subpix
+from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (
+    aligned,
+    edge_words,
+    plan_on_card,
+    resident_fn,
+    wta_uniq_subpix,
+)
 
 #: the dx of the three directions of a vertical set, in launch order
 VERT_DX = (0, 1, -1)
@@ -81,6 +93,18 @@ def _fn(name: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = I
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def chained_plan(W1: int, D: int, c_bytes: int, wta: bool, device):
+    """The bands of the vertical pass (wta False) or the final pass over an
+    (H, W1, D) volume of c_bytes elements on `device`, as the wrappers plan
+    them (kept per shape, as K5's)."""
+    lib, _ = _fn("rtdm_sgm_vert_resident",
+                 [I, I, I, I, I, ctypes.POINTER(ctypes.c_int)])
+    with torch.cuda.device(device):
+        return plan_on_card(resident_fn(lib, "rtdm_sgm_vert_resident", c_bytes,
+                                        int(wta), D), W1, D, c_bytes, c_bytes)
 
 
 def _rows(V: torch.Tensor, x_major: bool) -> torch.Tensor:
@@ -160,14 +184,18 @@ def sgm_vert_pass(C: torch.Tensor, p1: int, p2: int, reverse: bool = False,
     _build.require(C, "C", C.dtype)
     if partial is not None:
         _build.require(partial, "partial", C.dtype, C.shape)
+    C = aligned(C)
+    partial = None if partial is None else aligned(partial)
     H, W1, D = C.shape
     out = torch.empty_like(C)
-    lib, fn = _fn("rtdm_sgm_vert_pass", [P, I, P, P, I, I, I, I, I, I, P])
+    lib, fn = _fn("rtdm_sgm_vert_pass", [P, I, P, P, P, I, I, I, I, I, I, I, I, P])
+    plan = chained_plan(W1, D, C.element_size(), False, C.device)
+    edge = edge_words(plan, D, C.device)
     with torch.cuda.device(C.device):
         err = fn(C.data_ptr(), C.element_size(),
                  None if partial is None else partial.data_ptr(),
-                 out.data_ptr(), H, W1, D, int(reverse), int(p1), int(p2),
-                 _build.stream_of(C))
+                 out.data_ptr(), edge.data_ptr(), H, W1, D, plan.warps, plan.m,
+                 int(reverse), int(p1), int(p2), _build.stream_of(C))
     sgm_vert_pass.launches += 1
     _build.check(lib, err, "sgm_vert_pass")
     return out
@@ -200,16 +228,19 @@ def sgm_final_wta(C: torch.Tensor, S_partial: torch.Tensor, p1: int, p2: int,
                                    reverse)
     _build.require(C, "C", C.dtype)
     _build.require(S_partial, "S_partial", C.dtype, C.shape)
+    C, S_partial = aligned(C), aligned(S_partial)
     H, W1, D = C.shape
-    scratch = torch.empty((H, W1, D), dtype=torch.int32, device=C.device)
     outs = [torch.empty((H, W1), dtype=torch.int32, device=C.device)
             for _ in range(4)]
-    lib, fn = _fn("rtdm_sgm_final_wta", [P, I, P, P, I, I, I, I, I, I, I, P, P, P, P, P])
+    lib, fn = _fn("rtdm_sgm_final_wta",
+                  [P, I, P, P, I, I, I, I, I, I, I, I, I, P, P, P, P, P])
+    plan = chained_plan(W1, D, C.element_size(), True, C.device)
+    edge = edge_words(plan, D, C.device)
     with torch.cuda.device(C.device):
         err = fn(C.data_ptr(), C.element_size(), S_partial.data_ptr(),
-                 scratch.data_ptr(), H, W1, D, int(reverse), int(p1), int(p2),
-                 int(uniqueness_ratio), *[o.data_ptr() for o in outs],
-                 _build.stream_of(C))
+                 edge.data_ptr(), H, W1, D, plan.warps, plan.m, int(reverse),
+                 int(p1), int(p2), int(uniqueness_ratio),
+                 *[o.data_ptr() for o in outs], _build.stream_of(C))
     sgm_final_wta.launches += 1
     _build.check(lib, err, "sgm_final_wta")
     return tuple(outs)

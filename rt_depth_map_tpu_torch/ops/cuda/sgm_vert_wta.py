@@ -7,21 +7,30 @@ per pixel, (best, minS, dval, uniq), each (H, W1) int32: the winner (ties to
 the smallest d), its cost, the x16 subpixel disparity without the
 min_disparity offset, and 1 where the SGBM uniqueness test fails.
 
-On the H100 two row-synchronous launches do it (`csrc/sgm_vert_wta.cu`):
-the first walks the rows down with the three top-down directions and writes
-S = Sh + their L once; the second walks up with the other three and does
-the winner-take-all from registers. A block owns a band of columns (as many
-as spread W1 over the card's SMs, at most 16), a warp per column; the
-diagonal carries cross columns through shared memory inside a band and
-through row-tagged device-memory slots between bands, so every band must be
-resident at once: the launches are cooperative, and a shape whose bands
-cannot all be resident (W1 > 16 x the card's SMs) is refused and raises.
+On the H100 two row-synchronous launches of the port's one vertical scan
+(`csrc/sgm_vert.cuh`, which K9c, K9d and K11 share) do it: the first walks
+the rows down with the three top-down directions and writes S = Sh + their
+L once; the second walks up with the other three and does the
+winner-take-all from registers. A block owns a band of contiguous columns,
+a warp per column or, where W1 needs more warps than the resident blocks
+hold, several columns a warp (`vert_plan`). The diagonal carries cross
+columns through shared memory inside a band and through row-tagged
+device-memory slots between bands, so every band must be resident at once:
+the launches are cooperative, and `plan_on_card` sizes the bands from the
+blocks the card holds at once (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`
+x SMs). What bounds the width is a band's carries in shared memory, about
+20 x D bytes a column over W1 / resident blocks columns: 3840x2160 fits at
+D = 256.
 
 `sgm_vert_wta` launches the kernels for CUDA tensors and runs
 `sgm_vert_wta_plain` for CPU tensors; any other device raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -31,9 +40,10 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import aggregate_dir
 DISP_SCALE = 16
 #: the six directions (dy, dx) of K5; a pixel (y, x) follows (y-dy, x-dx)
 VERT_DIRS = ((1, 0), (1, 1), (1, -1), (-1, 0), (-1, 1), (-1, -1))
-#: most columns of a band, one warp each (VB_MAX_COLS in
-#: `csrc/sgm_vert_wta.cu`)
+#: most warps of a band (VB_MAX_WARPS in `csrc/sgm_vert.cuh`)
 MAX_BAND_COLS = 16
+#: shared memory a block may opt into on an H100 (227 KiB)
+SMEM_LIMIT = 232448
 
 
 def wta_uniq_subpix(S: torch.Tensor, uniqueness_ratio: int):
@@ -70,11 +80,88 @@ def sgm_vert_wta_plain(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
     return wta_uniq_subpix(S, uniqueness_ratio)
 
 
-def band_cols(W1: int, device) -> int:
-    """Columns of a band of the kernel on `device`: one band per SM where
-    the columns allow it (every band must be resident at once)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return min(MAX_BAND_COLS, -(-W1 // sms))
+@dataclass(frozen=True)
+class VertPlan:
+    """Bands of the vertical scan: `m` columns a warp, `warps` warps a band,
+    `bands` bands (blocks), each of warps * m contiguous columns."""
+    m: int
+    warps: int
+    bands: int
+
+
+def vert_smem_bytes(warps: int, m: int, D: int, c_bytes: int,
+                    s_bytes: int) -> int:
+    """A block's dynamic shared memory (`vb_smem_bytes` in
+    `csrc/sgm_vert.cuh`): the diagonal carries of two row parities, with
+    m > 1 the vertical carries too, and, where the D-vectors are whole
+    16-byte pieces, the cp.async ring of C and S_in pixels a warp."""
+    ring = 8 if D <= 128 else 4
+    ring_bytes = (warps * ring * D * (c_bytes + s_bytes)
+                  if D * c_bytes % 16 == 0 and D * s_bytes % 16 == 0 else 0)
+    return (4 + (m > 1)) * warps * m * D * 4 + ring_bytes
+
+
+def vert_plan(W1: int, D: int, resident: int, c_bytes: int = 2,
+              s_bytes: int = 4, smem_limit: int = SMEM_LIMIT) -> VertPlan:
+    """The bands of a W1-wide launch when `resident` blocks fit on the card
+    at once: one column a warp while W1 <= MAX_BAND_COLS x resident, the
+    columns spread over every resident block; beyond that the fewest
+    columns a warp that keep every band resident and its shared memory
+    within a block's. Raises where no plan fits."""
+    if W1 < 1 or resident < 1:
+        raise ValueError(f"vert_plan: W1={W1}, resident={resident}")
+    m = -(-W1 // (MAX_BAND_COLS * resident))
+    while m <= W1:
+        warps = min(MAX_BAND_COLS, -(-W1 // (m * resident)))
+        bands = -(-W1 // (warps * m))
+        if (bands <= resident and
+                vert_smem_bytes(warps, m, D, c_bytes, s_bytes) <= smem_limit):
+            return VertPlan(m, warps, bands)
+        m += 1
+    raise ValueError(f"vert_plan: no band of W1={W1}, D={D} over {resident} "
+                     f"blocks fits a block's shared memory")
+
+
+def plan_on_card(resident_fn, W1: int, D: int, c_bytes: int,
+                 s_bytes: int) -> VertPlan:
+    """The plan for the card. `resident_fn(warps, m)` gives the blocks of
+    the kernel resident at once (occupancy x SMs) for a band shape: sized
+    first from a full band of one-column warps, then again from the shape
+    chosen until every band of the plan fits."""
+    resident = resident_fn(MAX_BAND_COLS, 1)
+    while True:
+        plan = vert_plan(W1, D, resident, c_bytes, s_bytes)
+        fits = resident_fn(plan.warps, plan.m)
+        if plan.bands <= fits:
+            return plan
+        if fits < 1 or fits >= resident:
+            raise RuntimeError(f"the vertical scan cannot make {plan.bands} "
+                               f"bands resident ({fits} blocks fit)")
+        resident = fits
+
+
+def resident_fn(lib, entry: str, *lead):
+    """plan_on_card's resident_fn from a library's occupancy entry point,
+    called as entry(*lead, warps, m, &blocks)."""
+    fn = getattr(lib, entry)
+
+    def resident(warps: int, m: int) -> int:
+        blocks = ctypes.c_int(0)
+        _build.check(lib, fn(*lead, warps, m, ctypes.byref(blocks)), entry)
+        return blocks.value
+    return resident
+
+
+def edge_words(plan: VertPlan, D: int, device) -> torch.Tensor:
+    """Each band's two edge carries, double-buffered, as zeroed (row tag,
+    value) words: tag 0 names no row."""
+    return torch.zeros((plan.bands, 2, 2, D), dtype=torch.int64, device=device)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where it does not start on 32 bytes: the kernels
+    move whole vectors of up to 32 bytes."""
+    return t if t.data_ptr() % 32 == 0 else t.clone()
 
 
 def _fn():
@@ -82,9 +169,23 @@ def _fn():
     fn = lib.rtdm_sgm_vert_wta
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, I, P, P, P, I, I, I, I, I, I, I, P, P, P, P, P]
+        fn.argtypes = [P, I, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P]
         fn.restype = I
+        lib.rtdm_sgm_vert_wta_resident.argtypes = [
+            I, I, I, I, ctypes.POINTER(ctypes.c_int)]
+        lib.rtdm_sgm_vert_wta_resident.restype = I
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def k5_plan(W1: int, D: int, c_bytes: int, device) -> VertPlan:
+    """The bands of K5's launches over an (H, W1, D) volume of c_bytes
+    elements on `device`, as `sgm_vert_wta` plans them (kept per shape: the
+    occupancy queries behind it cost more host time than a launch)."""
+    lib, _ = _fn()
+    with torch.cuda.device(device):
+        return plan_on_card(resident_fn(lib, "rtdm_sgm_vert_wta_resident",
+                                        c_bytes, D), W1, D, c_bytes, 4)
 
 
 def sgm_vert_wta(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
@@ -103,22 +204,17 @@ def sgm_vert_wta(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
         raise ValueError(f"C must be int16 or int32, got {C.dtype}")
     _build.require(C, "C", C.dtype)
     _build.require(Sh, "Sh", torch.int32, (H, W1, D))
-    # the kernels move whole vectors of up to 32 bytes: a view that starts
-    # off that alignment is copied
-    C = C if C.data_ptr() % 32 == 0 else C.clone()
-    Sh = Sh if Sh.data_ptr() % 32 == 0 else Sh.clone()
+    C, Sh = aligned(C), aligned(Sh)
     S = torch.empty((H, W1, D), dtype=torch.int32, device=C.device)
-    cols = band_cols(W1, C.device)
-    bands = -(-W1 // cols)
-    # each band's two edge carries, double-buffered, as (row tag, value)
-    # words; tag 0 names no row
-    edge = torch.zeros((bands, 2, 2, D), dtype=torch.int64, device=C.device)
     outs = [torch.empty((H, W1), dtype=torch.int32, device=C.device)
             for _ in range(4)]
     lib, fn = _fn()
+    cb = C.element_size()
+    plan = k5_plan(W1, D, cb, C.device)
+    edge = edge_words(plan, D, C.device)
     with torch.cuda.device(C.device):
-        err = fn(C.data_ptr(), C.element_size(), Sh.data_ptr(), S.data_ptr(),
-                 edge.data_ptr(), H, W1, D, cols, int(p1), int(p2),
+        err = fn(C.data_ptr(), cb, Sh.data_ptr(), S.data_ptr(), edge.data_ptr(),
+                 H, W1, D, plan.warps, plan.m, int(p1), int(p2),
                  int(uniqueness_ratio), *[o.data_ptr() for o in outs],
                  _build.stream_of(C))
     sgm_vert_wta.launches += 1

@@ -5,13 +5,17 @@ tests/test_pallas_kernels.py run them; the route `stereo_sgbm` takes for
 each path count and shape; the port's copy of the SGBM golden against the
 original. Integer, bit-exact."""
 
+import functools
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
 from rt_depth_map_tpu.golden.sgbm import golden_stereo_sgbm as jgolden_stereo_sgbm
+from rt_depth_map_tpu.ops import sgbm as jsg
 from rt_depth_map_tpu.ops.pallas.sgm_hdw import (
     sgm_down_pass_hdw,
     sgm_final_wta_hdw,
@@ -121,6 +125,58 @@ def test_final_wta_plain_matches_pallas(dtype, reverse):
     for name, g, r in zip(("best", "minS", "dval", "uniq"), got, ref):
         assert g.dtype == torch.int32
         np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
+
+
+@functools.partial(jax.jit, static_argnums=(2, 3, 4))
+def _j_vert3(C, partial, p1, p2, dy):
+    """The JAX package's three directions of a sense (its XLA
+    `_aggregate_dir`) added to a partial."""
+    return partial + sum(jsg._aggregate_dir(C, p1, p2, dy, dx) for dx in (0, 1, -1))
+
+_j_wta = jax.jit(jsg.wta_uniq_subpix, static_argnums=1)
+
+
+# a volume wider than it is tall, so that the diagonals leave through the
+# bottom row and enter through the side columns; D = 40 leaves lanes idle
+WIDE = (6, 70, 40)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "int32"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_partial", [False, True])
+def test_vert_pass_matches_jax_on_a_wide_volume(dtype, reverse, with_partial):
+    """K9c/K11: `sgm_vert_pass` (on the CPU its plain version) against the
+    JAX package's directions, both senses, with and without a partial."""
+    tdt = DTYPES[dtype]
+    C = _cost(14, WIDE, tdt)
+    partial = _cost(15, WIDE, tdt, hi=5000) if with_partial else None
+    base = partial if with_partial else torch.zeros(WIDE, dtype=tdt)
+    ref = _j_vert3(jnp.asarray(C.numpy(), jnp.int32),
+                   jnp.asarray(base.numpy(), jnp.int32), P1, P2,
+                   -1 if reverse else 1).astype(C.numpy().dtype)
+    got = sgm_vert_pass(C, P1, P2, reverse, partial)
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert torch.equal(got, sgm_vert_pass_plain(C, P1, P2, reverse, partial))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("with_partial", [False, True])
+def test_final_wta_matches_jax_on_a_wide_volume(reverse, with_partial):
+    """K9d: `sgm_final_wta` against the JAX package's directions and
+    `wta_uniq_subpix`, both senses, on a partial and on a zero one."""
+    C = _cost(16, WIDE, torch.int16)
+    Sp = (_cost(17, WIDE, torch.int16, hi=5000) if with_partial
+          else torch.zeros(WIDE, dtype=torch.int16))
+    S = _j_vert3(jnp.asarray(C.numpy(), jnp.int32),
+                 jnp.asarray(Sp.numpy(), jnp.int32), P1, P2,
+                 -1 if reverse else 1)
+    ref = _j_wta(S, 10)
+    got = sgm_final_wta(C, Sp, P1, P2, 10, reverse)
+    for name, g, r in zip(("best", "minS", "dval", "uniq"), got, ref):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r).astype(np.int32),
+                                      err_msg=name)
 
 
 def test_chained_wrappers_run_plain_on_cpu():
