@@ -25,10 +25,16 @@ the script exits non-zero:
      that leaves its last band of columns ragged); the chained passes
      (K9a/K9b, K9c/K11, K9d: both senses, with and without a partial, int16
      and int32) at the stretch point 1920x1080, D=256 and at the odd shape,
-     K9c and K9d also timed at the flagship shape (K9d top-down is cv2
-     MODE_SGBM's call); the vertical kernel shared by K5, K9c and K9d at
-     D=100 (its register path) and at widths beyond 16 one-column warps on
-     each SM (H=48, W1=3712, D=64; 16 rows at W1=3712, D=128), each making
+     both K9a calls of the route timed there and at the flagship shape
+     (cv2 MODE_SGBM's calls), K9c and K9d also timed at the flagship shape
+     (K9d top-down is MODE_SGBM's call); K9a's register path (D=100), a
+     view that does not start on 16 bytes, rows shorter than its ring and
+     odd (W1 = 1, 3, 37; D = 64 and 256; int16 and int32; both layouts),
+     each one CUDA launch a call (the library's own count), and no spill
+     in its ring path's kernels (ptxas); the vertical kernel shared by K5,
+     K9c and K9d at D=100 (its register path) and at widths beyond 16
+     one-column warps on each SM (H=48, W1=3712, D=64; 16 rows at
+     W1=3712, D=128), each making
      one CUDA launch a call (K5 two; the library's own count); K2 at widths
      and heights a block does not hold (64x2881, 1428x96: chunked rows and
      columns, capped and uncapped); at 3840x2160 D=128 the frame program,
@@ -394,6 +400,7 @@ def main() -> int:
         sgm_cost_volume_plain,
     )
     from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (
+        horiz_pass_plan,
         sgm_final_wta,
         sgm_final_wta_plain,
         sgm_horiz_pass,
@@ -447,6 +454,14 @@ def main() -> int:
                           flush=True)
     print(f"phase 2 build total (parallel): {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # K9a's ring path keeps its carries and vectors in registers
+    func = ""
+    for ln in _build.build_log.get("sgm_hdw", "").splitlines():
+        if "Function properties for " in ln:
+            func = ln.split("Function properties for ")[1].strip()
+        if ("hp_ring_kernel" in func and "bytes spill stores" in ln
+                and not ln.strip().startswith("0 bytes")):
+            raise AssertionError(f"K9a's ring path spills: {func}: {ln.strip()}")
 
     # -- 3. kernels vs plain at the frame program's shapes -------------------
     sgm_eng = _engine("sgm", W, H)
@@ -603,8 +618,19 @@ def main() -> int:
               bound=(_nbytes(C), _nbytes(hf), 8 * n), plain_reps=2)
         check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2, True, hf),
               lambda: sgm_horiz_pass_plain(C, p1, p2, True, hf),
-              what + " R->L + partial", timed=False)
+              what + " R->L + partial",
+              bound=(_nbytes(C, hf), _nbytes(hf), 8 * n), plain_reps=1,
+              primary=False)
         Sh = sgm_horiz_pass(C, p1, p2, True, hf)
+        # the int32 volume (partials_fit_int16 false)
+        Ci, hfi = C.to(torch.int32), hf.to(torch.int32)
+        check(sgm_horiz_pass, lambda: sgm_horiz_pass(Ci, p1, p2),
+              lambda: sgm_horiz_pass_plain(Ci, p1, p2), what + " int32 L->R",
+              timed=False)
+        check(sgm_horiz_pass, lambda: sgm_horiz_pass(Ci, p1, p2, True, hfi),
+              lambda: sgm_horiz_pass_plain(Ci, p1, p2, True, hfi),
+              what + " int32 R->L + partial", timed=False)
+        del Ci, hfi
         # K9b, the x-major (W1, H, D) form: the second call of its chain
         # timed
         Ct = C.transpose(0, 1).contiguous()
@@ -654,7 +680,19 @@ def main() -> int:
         top-down on the horizontal sum), timed beside the stretch point's
         cases, which the summary reports."""
         n = C.numel()
-        h2 = sgm_horiz_pass(C, p1, p2, True, sgm_horiz_pass(C, p1, p2))
+        # K9a, MODE_SGBM's two calls
+        hf = sgm_horiz_pass(C, p1, p2)
+        check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2),
+              lambda: sgm_horiz_pass_plain(C, p1, p2), what + " L->R",
+              bound=(_nbytes(C), _nbytes(hf), 8 * n), plain_reps=1,
+              primary=False)
+        check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2, True, hf),
+              lambda: sgm_horiz_pass_plain(C, p1, p2, True, hf),
+              what + " R->L + partial",
+              bound=(_nbytes(C, hf), _nbytes(hf), 8 * n), plain_reps=1,
+              primary=False)
+        h2 = sgm_horiz_pass(C, p1, p2, True, hf)
+        del hf
         Sa = sgm_vert_pass(C, p1, p2, partial=h2)
         check(sgm_vert_pass, lambda: sgm_vert_pass(C, p1, p2, partial=h2),
               lambda: sgm_vert_pass_plain(C, p1, p2, partial=h2),
@@ -835,6 +873,50 @@ def main() -> int:
               f"a call", flush=True)
         del Cv, h2, Shv
     del vols
+
+    # K9a/K9b off the frame programs' shapes: the register path (D = 100 at
+    # int16: pixels that are not whole 16-byte pieces) on the odd crop's
+    # volume, a view that does not start on 16 bytes (the wrapper aligns
+    # it), and rows shorter than the ring and odd (W1 = 1, 3, 37) at D = 64
+    # and 256, int16 and int32; both senses, with and without a partial,
+    # row-major and x-major; each call one CUDA launch (the library's count)
+    count = ctypes.c_int.in_dll(_build.load("sgm_hdw"),
+                                "rtdm_sgm_horiz_pass_kernel_launches")
+    flat = torch.from_numpy(rng.integers(0, 2300, 45 * 236 * 64 + 1)).to(
+        torch.int16).to(dev)
+    hp_vols = [("700x1000 D=100 (register path)", sgm_cost_volume(
+        sg.plane_stack(lr_o, m.pre_filter_cap), sg.plane_stack(rr_o, m.pre_filter_cap),
+        100, BS, torch.int16)[0]),
+        ("45x300 D=64 view at +2 bytes", flat[1:].view(45, 236, 64))]
+    for hw1 in (1, 3, 37):
+        for hd in (64, 256):
+            for hdt in (torch.int16, torch.int32):
+                hp_vols.append((f"9x{hw1 + hd} D={hd} {str(hdt)[6:]}", torch.from_numpy(
+                    rng.integers(0, 2300, (9, hw1, hd))).to(hdt).to(dev)))
+    for what, Cv in hp_vols:
+        for xm in (False, True):
+            Cx = Cv.transpose(0, 1).contiguous() if xm else Cv
+            hfv = sgm_horiz_pass_plain(Cx, p1, p2, False, None, xm)
+            for rev, part in ((False, None), (True, None), (False, hfv), (True, hfv)):
+                before = count.value
+                sgm_horiz_pass(Cx, p1, p2, rev, part, xm)
+                if count.value - before != 1:
+                    raise AssertionError(f"sgm_horiz_pass {what}: {count.value - before} "
+                                         f"CUDA launches in one call, not 1")
+                check(sgm_horiz_pass,
+                      lambda c=Cx, r=rev, q=part, x=xm: sgm_horiz_pass(c, p1, p2, r, q, x),
+                      lambda c=Cx, r=rev, q=part, x=xm: sgm_horiz_pass_plain(
+                          c, p1, p2, r, q, x),
+                      f"{what}{' x-major' if xm else ''} "
+                      f"{'R->L' if rev else 'L->R'}{' + partial' if part is not None else ''}",
+                      timed=False)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {f"{hh} rows D={hd} partial={q}": tuple(horiz_pass_plan(hd, 2, q, hh, sms))
+             for hh, hd in ((H, D), STRETCH[::2]) for q in (False, True)}
+    print(f"phase 3 sgm_horiz_pass: {len(hp_vols)} off-path volumes exact, one CUDA "
+          f"launch a call; int16 plans (ring, rows, smem, ring path) {plans}",
+          flush=True)
+    del hp_vols, flat
 
     # K2 where a row (W > 2880) or a column (H > 1427) does not fit a block:
     # chunked phases, capped and at the fixed point

@@ -22,8 +22,10 @@ As on the TPU, the outputs of the first two take the cost volume's dtype:
 with an int16 volume a partial holds at most five directions, which fit
 int16 while 5 * (P2 - min(P1, 0)) <= 32768 (each direction's L lies in
 [C - P2 + min(P1, 0), C], and `volume_dtype` bounds 5 * C); the wrappers
-raise otherwise. The horizontal pass is the warp-per-row scan of
-`csrc/sgm_path.cuh`, bound by each row's serial chain. The vertical pass
+raise otherwise. The horizontal pass is one launch of a warp-per-row scan
+fed from a ring of asynchronous copies in shared memory
+(`horiz_pass_plan`), bound by device memory bytes and by its step's
+integer instructions. The vertical pass
 and the final pass are one cooperative launch each of K5's row-synchronous
 kernel (`csrc/sgm_vert.cuh`): the three directions of a sense in one walk
 over the rows, bands of columns planned as K5's (`sgm_vert_wta.py`
@@ -38,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -114,6 +116,49 @@ def _rows(V: torch.Tensor, x_major: bool) -> torch.Tensor:
 
 # -- K9a / K9b ---------------------------------------------------------------
 
+#: bytes of C (and the partial) the horizontal pass keeps in flight on each
+#: SM, shared by the warps there (one a row): the ring depth that was
+#: fastest at 1920x1080 D=256 (4 slots) and 1280x720 D=128 (16 without a
+#: partial, 8 with one) on an H100, `tools/time_torch_horiz_pass.py --sweep`
+HORIZ_IN_FLIGHT_SM = 12 * 1024
+#: rows (one warp each) a block of the horizontal pass: 1, 2 and 4 time
+#: within 1% of each other there
+HORIZ_ROWS = 2
+HORIZ_RINGS = (4, 8, 16)
+#: bytes of a warp's ring at most (`csrc/sgm_hdw.cu` HP_RING_BYTES)
+HORIZ_RING_BYTES = 16384
+
+
+class HorizPlan(NamedTuple):
+    ring: int  # slots a warp: a slot is one pixel's C (and partial) vector
+    rows: int  # warps a block
+    smem: int  # shared memory bytes a block (0 on the register path)
+    ring_path: bool  # False: pixels are not whole 16-byte pieces
+
+
+def horiz_pass_plan(D: int, c_bytes: int, with_partial: bool, H: int,
+                    sms: int) -> HorizPlan:
+    """The launch plan of `csrc/sgm_hdw.cu` `rtdm_sgm_horiz_pass` for H rows
+    of D disparities of c_bytes each on a card of `sms` SMs (a pure
+    function): the fewest ring slots that keep a warp's share of
+    HORIZ_IN_FLIGHT_SM ahead of its step (ring - 1 slots are in flight),
+    within HORIZ_RING_BYTES a warp, and whether the ring path applies (each
+    pixel's D elements are whole 16-byte pieces; the wrapper aligns the
+    volumes)."""
+    slot = D * c_bytes * (2 if with_partial else 1)
+    per_warp = HORIZ_IN_FLIGHT_SM / -(-H // sms)
+    rings = [r for r in HORIZ_RINGS if r == HORIZ_RINGS[0] or r * slot <= HORIZ_RING_BYTES]
+    ring = next((r for r in rings if (r - 1) * slot >= per_warp), rings[-1])
+    ring_path = D * c_bytes % 16 == 0
+    return HorizPlan(ring, HORIZ_ROWS, HORIZ_ROWS * ring * slot if ring_path else 0,
+                     ring_path)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def sgm_horiz_pass_plain(C: torch.Tensor, p1: int, p2: int,
                          reverse: bool = False,
                          partial: Optional[torch.Tensor] = None,
@@ -141,15 +186,19 @@ def sgm_horiz_pass(C: torch.Tensor, p1: int, p2: int, reverse: bool = False,
     _build.require(C, "C", C.dtype)
     if partial is not None:
         _build.require(partial, "partial", C.dtype, C.shape)
+    C = aligned(C)
+    partial = None if partial is None else aligned(partial)
     A, B, D = C.shape
     H, W1 = (B, A) if x_major else (A, B)
     out = torch.empty_like(C)
-    lib, fn = _fn("rtdm_sgm_horiz_pass", [P, I, P, P, I, I, I, I, I, I, I, P])
+    plan = horiz_pass_plan(D, C.element_size(), partial is not None, H,
+                           _sms(C.device))
+    lib, fn = _fn("rtdm_sgm_horiz_pass", [P, I, P, P, I, I, I, I, I, I, I, I, I, P])
     with torch.cuda.device(C.device):
         err = fn(C.data_ptr(), C.element_size(),
                  None if partial is None else partial.data_ptr(),
                  out.data_ptr(), H, W1, D, int(x_major), int(reverse),
-                 int(p1), int(p2), _build.stream_of(C))
+                 int(p1), int(p2), plan.ring, plan.rows, _build.stream_of(C))
     sgm_horiz_pass.launches += 1
     _build.check(lib, err, "sgm_horiz_pass")
     return out
