@@ -58,7 +58,9 @@ the script exits non-zero:
      frame program's stage marks) and the device's busy share
      (torch.profiler);
   6. engine, BM (D=128, block size 13, speckle filter on): the same checks
-     on its own path, counted apart;
+     on its own path, counted apart; its timing, stage profile and device
+     time a frame (K8 itself is checked in phase 3 at 720p D=128 and D=192,
+     1920x1080 D=256, D=100 bs=5 and a ragged crop at bs=21);
   7. engine, the stretch point (1920x1080, 8-path SGM, D=256; H % 16 != 0,
      so the chained route): the same checks on two frames, the bidir
      kernels must not launch; its timing and stage profile;
@@ -92,12 +94,17 @@ STRETCH_FRAMES = 2  # frames of the checked stretch run (its plain program is sl
 TIMED_FRAMES = 30  # frames of the timed engine run
 DEV = "cuda"
 
-#: H100 SXM peaks (NVIDIA data sheet): device memory bytes/s, and the
-#: non-tensor-core fp32 rate, used for the kernels' int32 operations (the
-#: data sheet lists no int32 rate; the fp32 rate is the higher one, so the
-#: bound stays a lower bound)
+#: H100 SXM device memory bytes/s (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
+#: the card's 32-bit lane instructions a second, set by main()
+#: (`_lane_rate`): SMs x 128 lanes x the max SM clock (nvidia-smi). Each
+#: SM's four schedulers issue one 32-lane instruction a clock, and integer
+#: work can fill them all (adds and logic on the 64 INT32 lanes, IMAD on
+#: the FMA pipe beside them); it is half the data sheet's 67 TFLOP/s fp32
+#: rate, which counts an FMA as two operations. A bound's operations are
+#: counted in these instructions at the widest SIMD the card has for their
+#: type (`_lanes`), so that the bound stays a floor.
+PEAK_OPS = None
 #: the kernels of each frame program: the SGM one (bidir route), the BM
 #: one, 8-path SGM on the chained route, and cv2 MODE_SGBM (5 paths)
 _SGM_COMMON = ("remap_u8", "seg_min_propagate", "sgm_cost_volume", "lr_resolve",
@@ -169,6 +176,25 @@ def _bound(in_bytes: int, out_bytes: int, ops: float):
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_OPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _lane_rate() -> float:
+    """SMs x 128 lanes x the max SM clock of card 0: 32-bit lane
+    instructions a second."""
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 128 * mhz * 1e6
+
+
+def _lanes(ops: float, elem_bytes: int) -> float:
+    """32-bit lane instructions for `ops` integer operations on elements of
+    `elem_bytes` bytes at the card's SIMD width for them: 4 bytes a lane
+    (VABSDIFF4, VADD4, VMNMX4), 2 16-bit values (VADD2, VMNMX2), 1 32-bit."""
+    return ops * elem_bytes / 4
 
 
 def _card() -> str:
@@ -368,6 +394,7 @@ def _device_busy(fn, frames=5):
 
 
 def main() -> int:
+    global PEAK_OPS
     import torch
 
     if not torch.cuda.is_available():
@@ -428,8 +455,10 @@ def main() -> int:
     card = _card()
     dev = torch.device(DEV)
     name = torch.cuda.get_device_name(0)
+    PEAK_OPS = _lane_rate()
     print(f"phase 1 device: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | devices {torch.cuda.device_count()}", flush=True)
+          f"{torch.version.cuda} | devices {torch.cuda.device_count()} | "
+          f"{PEAK_OPS / 1e12:.2f} T 32-bit lane instructions/s", flush=True)
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -509,7 +538,8 @@ def main() -> int:
         print(line + ")", flush=True)
 
     # K1: left 4-channel and right gray planes through the warped maps
-    # (~16 operations per output value: four taps, weights, rounding)
+    # (~16 fp32 and int32 operations per output value: four taps, weights,
+    # rounding)
     for what, img, tab in (("left gray+RGB", lstack, st.left),
                            ("right gray", rgray, st.right)):
         args = (img, tab.ix, tab.iy, tab.fx, tab.fy, tab.valid)
@@ -525,7 +555,7 @@ def main() -> int:
 
     def cc_bound(n_fields, n_px, sweeps, diag):
         """K2's bound: fields, mask and edges read once, fields written once;
-        ~8 operations per field value and sweep (hop, row and column
+        ~8 int32 operations per field value and sweep (hop, row and column
         run-min, flags), ~4 more with the hop."""
         return (n_px * (4 * n_fields + 1 + 1), 4 * n_fields * n_px,
                 (12 if diag else 8) * n_fields * n_px * sweeps)
@@ -571,6 +601,7 @@ def main() -> int:
     def bidir_checks(C, what):
         """K12, K4, K12, K5 against their plain versions; K5's outputs."""
         C4 = C[:, None]
+        es = C.element_size()
         # K12 turns the cost volume x-major for K4 and K4's sum back; the
         # library call is torch's own strided copy
         check(vol_transpose, lambda: vol_transpose(C4),
@@ -588,10 +619,12 @@ def main() -> int:
             raise AssertionError(f"sgm_horiz {what}: {count.value - before} CUDA "
                                  f"launches in one call, not 1")
         print(f"phase 3 sgm_horiz {what}: one CUDA launch a call", flush=True)
-        # 8 operations per element and direction (min, shuffles, add)
+        # 8 operations per element and direction (min, shuffles, add) at
+        # the volume's width
         check(sgm_horiz, lambda: sgm_horiz(Ct, p1, p2),
               lambda: sgm_horiz_plain(Ct, p1, p2), what,
-              bound=(_nbytes(Ct), _nbytes(Sh_t), 2 * 8 * C.numel()), plain_reps=2)
+              bound=(_nbytes(Ct), _nbytes(Sh_t), _lanes(2 * 8 * C.numel(), es)),
+              plain_reps=2)
         S4 = Sh_t[:, None]
         check(vol_transpose, lambda: vol_transpose(S4),
               lambda: vol_transpose_plain(S4), what + " horizontal sum",
@@ -602,24 +635,28 @@ def main() -> int:
         outs = sgm_vert_wta(C, Sh, p1, p2, ur)
         check(sgm_vert_wta, lambda: sgm_vert_wta(C, Sh, p1, p2, ur),
               lambda: sgm_vert_wta_plain(C, Sh, p1, p2, ur), what,
-              bound=(_nbytes(C, Sh), _nbytes(*outs), 6 * 8 * C.numel() + 8 * C.numel()),
+              # six paths at the volume's width, the winner on int32 sums
+              bound=(_nbytes(C, Sh), _nbytes(*outs),
+                     _lanes(6 * 8 * C.numel(), es) + 8 * C.numel()),
               plain_reps=2)
         return outs
 
     def chained_checks(C, what):
         """K9a/K9b, K9c/K11 and K9d against their plain versions: the
         8-path route's calls timed, the other senses, partials, layouts and
-        dtypes checked; the 8-path route's outputs."""
-        n = C.numel()
+        dtypes checked; the 8-path route's outputs (bounds: ~8 operations
+        per element and path at the volume's width, ~8 more for K9d's
+        winner)."""
+        n, es = C.numel(), C.element_size()
         # K9a, the route's two calls: left to right, right to left + partial
         hf = sgm_horiz_pass(C, p1, p2)
         check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2),
               lambda: sgm_horiz_pass_plain(C, p1, p2), what + " L->R",
-              bound=(_nbytes(C), _nbytes(hf), 8 * n), plain_reps=2)
+              bound=(_nbytes(C), _nbytes(hf), _lanes(8 * n, es)), plain_reps=2)
         check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2, True, hf),
               lambda: sgm_horiz_pass_plain(C, p1, p2, True, hf),
               what + " R->L + partial",
-              bound=(_nbytes(C, hf), _nbytes(hf), 8 * n), plain_reps=1,
+              bound=(_nbytes(C, hf), _nbytes(hf), _lanes(8 * n, es)), plain_reps=1,
               primary=False)
         Sh = sgm_horiz_pass(C, p1, p2, True, hf)
         # the int32 volume (partials_fit_int16 false)
@@ -641,7 +678,7 @@ def main() -> int:
         check(sgm_horiz_pass, lambda: sgm_horiz_pass(Ct, p1, p2, True, hft, True),
               lambda: sgm_horiz_pass_plain(Ct, p1, p2, True, hft, True),
               what + " x-major R->L + partial (K9b form)",
-              bound=(_nbytes(Ct, hft), _nbytes(hft), 8 * n), plain_reps=1)
+              bound=(_nbytes(Ct, hft), _nbytes(hft), _lanes(8 * n, es)), plain_reps=1)
         del Ct, hft
         # K9c, the route's call (top-down + partial); K11's other sense and
         # its int32 contract
@@ -649,7 +686,7 @@ def main() -> int:
         check(sgm_vert_pass, lambda: sgm_vert_pass(C, p1, p2, partial=Sh),
               lambda: sgm_vert_pass_plain(C, p1, p2, partial=Sh),
               what + " top-down + partial",
-              bound=(_nbytes(C, Sh), _nbytes(Sa), 3 * 8 * n), plain_reps=1)
+              bound=(_nbytes(C, Sh), _nbytes(Sa), _lanes(3 * 8 * n, es)), plain_reps=1)
         check(sgm_vert_pass, lambda: sgm_vert_pass(C, p1, p2, True),
               lambda: sgm_vert_pass_plain(C, p1, p2, True),
               what + " bottom-up", timed=False)
@@ -660,7 +697,8 @@ def main() -> int:
         check(sgm_vert_pass, lambda: sgm_vert_pass(Ci, p1, p2, True, Shi),
               lambda: sgm_vert_pass_plain(Ci, p1, p2, True, Shi),
               what + " int32 bottom-up + partial (K11 form)",
-              bound=(_nbytes(Ci, Shi), _nbytes(Shi), 3 * 8 * n), plain_reps=1)
+              bound=(_nbytes(Ci, Shi), _nbytes(Shi), _lanes(3 * 8 * n, Ci.element_size())),
+              plain_reps=1)
         del Ci, Shi
         # K9d: the 8-path finish (bottom-up on the 5-direction partial), and
         # the 5-path one (top-down on the horizontal sum)
@@ -668,7 +706,7 @@ def main() -> int:
         check(sgm_final_wta, lambda: sgm_final_wta(C, Sa, p1, p2, ur, True),
               lambda: sgm_final_wta_plain(C, Sa, p1, p2, ur, True),
               what + " bottom-up",
-              bound=(_nbytes(C, Sa), _nbytes(*outs), 3 * 8 * n + 8 * n),
+              bound=(_nbytes(C, Sa), _nbytes(*outs), _lanes(4 * 8 * n, es)),
               plain_reps=1)
         check(sgm_final_wta, lambda: sgm_final_wta(C, Sh, p1, p2, ur, False),
               lambda: sgm_final_wta_plain(C, Sh, p1, p2, ur, False),
@@ -679,17 +717,17 @@ def main() -> int:
         """K9c and K9d at the flagship shape (cv2 MODE_SGBM's K9d call is
         top-down on the horizontal sum), timed beside the stretch point's
         cases, which the summary reports."""
-        n = C.numel()
+        n, es = C.numel(), C.element_size()
         # K9a, MODE_SGBM's two calls
         hf = sgm_horiz_pass(C, p1, p2)
         check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2),
               lambda: sgm_horiz_pass_plain(C, p1, p2), what + " L->R",
-              bound=(_nbytes(C), _nbytes(hf), 8 * n), plain_reps=1,
+              bound=(_nbytes(C), _nbytes(hf), _lanes(8 * n, es)), plain_reps=1,
               primary=False)
         check(sgm_horiz_pass, lambda: sgm_horiz_pass(C, p1, p2, True, hf),
               lambda: sgm_horiz_pass_plain(C, p1, p2, True, hf),
               what + " R->L + partial",
-              bound=(_nbytes(C, hf), _nbytes(hf), 8 * n), plain_reps=1,
+              bound=(_nbytes(C, hf), _nbytes(hf), _lanes(8 * n, es)), plain_reps=1,
               primary=False)
         h2 = sgm_horiz_pass(C, p1, p2, True, hf)
         del hf
@@ -697,7 +735,7 @@ def main() -> int:
         check(sgm_vert_pass, lambda: sgm_vert_pass(C, p1, p2, partial=h2),
               lambda: sgm_vert_pass_plain(C, p1, p2, partial=h2),
               what + " top-down + partial",
-              bound=(_nbytes(C, h2), _nbytes(Sa), 3 * 8 * n), plain_reps=1,
+              bound=(_nbytes(C, h2), _nbytes(Sa), _lanes(3 * 8 * n, es)), plain_reps=1,
               primary=False)
         for rev, case in ((True, " bottom-up"), (False, " top-down (MODE_SGBM)")):
             part = Sa if rev else h2
@@ -705,7 +743,7 @@ def main() -> int:
             check(sgm_final_wta, lambda: sgm_final_wta(C, part, p1, p2, ur, rev),
                   lambda: sgm_final_wta_plain(C, part, p1, p2, ur, rev),
                   what + case,
-                  bound=(_nbytes(C, part), _nbytes(*outs), 3 * 8 * n + 8 * n),
+                  bound=(_nbytes(C, part), _nbytes(*outs), _lanes(4 * 8 * n, es)),
                   plain_reps=1, primary=False)
 
     flagship = (H, W, D)
@@ -719,11 +757,12 @@ def main() -> int:
         what = f"{h}x{w} D={d}"
         C = sgm_cost_volume(lpl, rpl, d, BS, dtype)[0]
         n = C.numel()
-        # ~21 operations per volume element: two BT costs, the quarter
-        # weighting, and the separable sliding window sums
+        # ~21 operations per volume element at its width: two BT costs, the
+        # quarter weighting, and the separable sliding window sums
         check(sgm_cost_volume, lambda: sgm_cost_volume(lpl, rpl, d, BS, dtype)[0],
               lambda: sgm_cost_volume_plain(lpl, rpl, d, BS, dtype)[0], what,
-              bound=(_nbytes(lpl, rpl), _nbytes(C), 21 * n), plain_reps=5)
+              bound=(_nbytes(lpl, rpl), _nbytes(C), _lanes(21 * n, C.element_size())),
+              plain_reps=5)
         if (h, w, d) != STRETCH:
             # the int32 volume: bs 11 needs it even at pre_filter_cap 0
             dt11 = sg.volume_dtype(11, m.pre_filter_cap)
@@ -1001,11 +1040,27 @@ def main() -> int:
     lp = xsobel_prefilter(lrect, bm_cfg.pre_filter_cap)
     rp = xsobel_prefilter(rrect, bm_cfg.pre_filter_cap)
     bm_out = bm_cost_wta(lp, rp, BM_D, BM_BS)
-    # ~9 operations per pixel and d: |L - R|, the sliding window updates and
-    # the winner update
-    check(bm_cost_wta, lambda: bm_cost_wta(lp, rp, BM_D, BM_BS),
-          lambda: bm_cost_wta_plain(lp, rp, BM_D, BM_BS), f"D={BM_D} bs={BM_BS}",
-          bound=(_nbytes(lp, rp), _nbytes(*bm_out), 9 * H * W * BM_D))
+    slp = xsobel_prefilter(slrect, bm_cfg.pre_filter_cap)
+    srp = xsobel_prefilter(srrect, bm_cfg.pre_filter_cap)
+    # per pixel and d: |L - R| (a byte), the vertical window update (a
+    # 16-bit add and subtract), the horizontal one (the same, 32-bit where a
+    # window cost passes 16 bits) and the min (32-bit); five (H, W) int32
+    # outputs; 720p at D=128 (the BM path's call, primary) and at the
+    # reference's default D=192, 1920x1080 at D=256, then checked only:
+    # D=100 (lanes of 4 d, the last ones idle) and a ragged crop
+    for a, b, d, bs, what, timed in (
+            (lp, rp, BM_D, BM_BS, f"D={BM_D} bs={BM_BS}", True),
+            (lp, rp, 192, BM_BS, f"D=192 bs={BM_BS}", True),
+            (slp, srp, str_d, BM_BS, f"{str_w}x{str_h} D={str_d} bs={BM_BS}", True),
+            (lp, rp, 100, 5, "D=100 bs=5", False),
+            (lp[3:300, 5:1006].contiguous(), rp[3:300, 5:1006].contiguous(),
+             BM_D, 21, "297x1001 D=128 bs=21", False)):
+        check(bm_cost_wta, lambda a=a, b=b, d=d, bs=bs: bm_cost_wta(a, b, d, bs),
+              lambda a=a, b=b, d=d, bs=bs: bm_cost_wta_plain(a, b, d, bs), what,
+              bound=(_nbytes(a, b), 5 * 4 * a.numel(), a.numel() * d * (
+                  _lanes(1, 1) + _lanes(2, 2) + 1
+                  + _lanes(2, 2 if bs * bs * 255 < 2**16 else 4))),
+              plain_reps=5, timed=timed)
     bdisp = bm_ops.stereo_bm(lrect, rrect, bm_cfg.replace(
         disp12_max_diff=-1, speckle_window_size=0), plain=True)
     _, _, d_int, key = bm_ops.lr_key_planes(bdisp, bm_out[1])
@@ -1088,6 +1143,7 @@ def main() -> int:
     bm_eng, bm_launches = _check_engine(6, "bm", W, H, BM_PATH)
     bm_ms = _wall_ms(lambda: bm_eng.frame_program(*pair), reps=10)
     print(f"phase 6 BM timing on {card}: frame program {bm_ms:.3f} ms", flush=True)
+    profile(6, bm_eng, pair, 10)
     del bm_eng
 
     # -- 7. the stretch point: 8-path SGM at 1920x1080, D=256 (chained) ------

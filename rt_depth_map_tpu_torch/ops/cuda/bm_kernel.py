@@ -1,4 +1,4 @@
-"""K8: StereoBM SAD cost + streaming winner-take-all (`csrc/bm_kernel.cu`).
+"""K8: StereoBM SAD cost + winner-take-all (`csrc/bm_kernel.cu`).
 
 Replaces `rt_depth_map_tpu/ops/pallas/bm_kernel.py` `bm_cost_wta`. The port's
 contract holds on every pixel and is the XLA formulation's
@@ -7,10 +7,16 @@ zero-padded at the border, |L - R| = 0 where x - d < 0. (The Pallas kernel
 zero-fills the left border differently, but only outside the region
 `stereo_bm` keeps.)
 
-On the H100 the kernel is bounded by shared-memory traffic: it keeps per-d
-vertical window sums of a 128-column tile in shared memory, slides them down
-the rows, and sums bs of them per pixel and d while a register-resident
-winner state walks d; the (D, H, W) volume never reaches device memory.
+Its bound on the H100 is integer instructions (`PERF.md` gives its time
+beside that bound). A block owns a tile of output columns (32 a warp) and a
+stripe of rows (`bm_plan`, a pure function of the shape and of the SM's
+shared memory). It slides the
+per-d vertical window sums down the rows in shared memory, 16 d a thread
+with byte-SIMD differences, fed from a ring of rows copied one row ahead
+with `cp.async`; each warp slides the horizontal window along its 32
+pixels in registers, with D over its lanes, and finds each pixel's winner
+with warp reductions. The (D, H, W) volume never reaches device memory;
+one CUDA launch a call.
 
 `bm_cost_wta` launches the kernel for CUDA tensors and runs
 `bm_cost_wta_plain` for CPU tensors; any other device raises.
@@ -18,12 +24,30 @@ winner state walks d; the (D, H, W) volume never reaches device memory.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from rt_depth_map_tpu_torch.ops.cuda import _build
 
 MIN_OUTSIDE_NONE = 2**28
+
+#: shared memory the card reserves for each resident block, which is also
+#: what a block may not take of its SM's (bytes; sm_80 and later)
+SMEM_RESERVED = 1024
+#: output columns a warp, one a lane (csrc/bm_kernel.cu BM_PW; 16 or 8 with
+#: more warps were slower on the H100: `tools/time_torch_bm.py --ablate`)
+PIXELS_PER_WARP = 32
+#: the most warps a block takes (BM_MAX_WARPS)
+MAX_WARPS = 8
+#: the fewest columns of a tile at D <= 128 and at D > 128 (on the H100, 128
+#: beat 64 at D = 192 and 256 and tied at D = 128: `tools/time_torch_bm.py
+#: --sweep`)
+MIN_COLUMNS = (64, 128)
+#: the fewest rows of a stripe (on the H100, 32 rows at 1280x720 and
+#: 1920x1080 beat 12-24, 40 and 48: `tools/time_torch_bm.py --sweep`)
+MIN_ROWS = 32
 
 
 def _sliding_sum(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
@@ -71,12 +95,73 @@ def bm_cost_wta_plain(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
     return best, best_cost, c_m1.to(torch.int32), c_p1.to(torch.int32), min_out
 
 
+def lane_k(D: int) -> int:
+    """Disparities a lane holds: ceil(D / 32) rounded up to 1, 2, 4 or 8."""
+    k = 1
+    while 32 * k < D:
+        k *= 2
+    return k
+
+
+def bm_smem(tx: int, D: int, bs: int) -> int:
+    """Shared-memory bytes of a block of `tx` output columns: the uint16
+    vertical sums of the tx + bs - 1 halo columns at 32 * K disparities,
+    and a ring of bs + 1 rows of L and of R in whole 16-byte pieces, R
+    behind a 32-byte pad. The layout is `csrc/bm_kernel.cu` `bm_layout`,
+    whose entry point refuses a plan whose size differs from it."""
+    cw = tx + bs - 1
+    ls = 16 * ((cw + 30) // 16)
+    rs = 16 * ((cw + D - 1 + 30) // 16) + 16
+    return cw * 32 * lane_k(D) * 2 + (bs + 1) * (ls + rs) + 32
+
+
+class BmPlan(NamedTuple):
+    tx: int  # output columns a block: PIXELS_PER_WARP a warp
+    ty: int  # output rows a block
+    warps: int
+    smem: int  # shared-memory bytes a block
+    resident: int  # blocks an SM holds by shared memory
+
+
+def bm_plan(H: int, W: int, D: int, bs: int, smem_per_sm: int) -> BmPlan:
+    """K8's launch plan on an SM of `smem_per_sm` bytes of shared memory:
+    tiles of tx = PIXELS_PER_WARP * warps columns by ty rows.
+
+    Tiles take at least MIN_COLUMNS columns; the halo overhead
+    (tx + bs - 1) / tx stays at or below 1.2 and the priming overhead
+    (ty + bs - 1) / ty at or below 1.5 where the frame is that large, with
+    stripes of at least MIN_ROWS rows; the tile narrows until two blocks
+    fit in an SM's shared memory (one where none narrower does). A block
+    may take all of its SM's but SMEM_RESERVED. Raises if no block fits."""
+    if not (1 <= D <= 256) or bs % 2 == 0 or bs < 1:
+        raise ValueError(f"bm_plan: unsupported D={D}, block_size={bs}")
+
+    def resident(tx):
+        smem = bm_smem(tx, D, bs)
+        if smem > smem_per_sm - SMEM_RESERVED:
+            return 0
+        return smem_per_sm // (smem + SMEM_RESERVED)
+
+    pw = PIXELS_PER_WARP
+    warps = -(-5 * (bs - 1) // pw)  # tx >= 5 * (bs - 1)
+    warps = min(max(warps, MIN_COLUMNS[D > 128] // pw), MAX_WARPS,
+                max(-(-W // pw), 1))
+    while warps > 1 and resident(pw * warps) < 2:
+        warps -= 1
+    tx = pw * warps
+    if resident(tx) < 1:
+        raise ValueError(f"bm_plan: no block of D={D}, block_size={bs} fits "
+                         f"in {smem_per_sm} bytes of shared memory")
+    ty = min(max(2 * (bs - 1), MIN_ROWS), max(H, 1))
+    return BmPlan(tx, ty, warps, bm_smem(tx, D, bs), resident(tx))
+
+
 def _fn():
     lib = _build.load("bm_kernel")
     fn = lib.rtdm_bm_cost_wta
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, I, I, I, I, P, P, P, P, P, P]
+        fn.argtypes = [P, P, I, I, I, I, P, P, P, P, P, I, I, I, P]
         fn.restype = I
     return lib, fn
 
@@ -97,10 +182,13 @@ def bm_cost_wta(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
     _build.require(rp, "rp", torch.uint8, (H, W))
     outs = [torch.empty((H, W), dtype=torch.int32, device=lp.device)
             for _ in range(5)]
+    plan = bm_plan(H, W, D, bs, torch.cuda.get_device_properties(
+        lp.device).shared_memory_per_multiprocessor)
     lib, fn = _fn()
     with torch.cuda.device(lp.device):
         err = fn(lp.data_ptr(), rp.data_ptr(), H, W, D, bs,
-                 *[o.data_ptr() for o in outs], _build.stream_of(lp))
+                 *[o.data_ptr() for o in outs], plan.warps, plan.ty, plan.smem,
+                 _build.stream_of(lp))
     bm_cost_wta.launches += 1
     _build.check(lib, err, "bm_cost_wta")
     return tuple(outs)

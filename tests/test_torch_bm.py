@@ -20,15 +20,26 @@ from rt_depth_map_tpu.ops.pallas.lr_resolve import lr_resolve_pallas
 from rt_depth_map_tpu.ops.prefilter import xsobel_prefilter as jprefilter
 from rt_depth_map_tpu_torch.config import MatcherConfig
 from rt_depth_map_tpu_torch.ops import bm as tbm
-from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import bm_cost_wta, bm_cost_wta_plain
-from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
+from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
+    MAX_WARPS,
+    PIXELS_PER_WARP,
+    SMEM_RESERVED,
+    bm_cost_wta_plain,
+    bm_plan,
+    bm_smem,
+)
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve_plain
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
-from torch_helpers import cuda_or_skip, stereo_pair, t
+from torch_helpers import stereo_pair, t
 
 
 def jax_config(cfg: MatcherConfig, **kw) -> JMatcherConfig:
     """The JAX package's MatcherConfig with the port config's fields."""
     return JMatcherConfig(**{**dataclasses.asdict(cfg), **kw})
+
+
+#: shared memory of one H100 SM (bytes), as the card reports it
+H100_SMEM_PER_SM = 228 * 1024
 
 
 def _prefiltered(seed, H, W, shift, cap=31):
@@ -180,18 +191,31 @@ def test_stereo_bm_refuses_speckle_and_min_disparity():
             num_disparities=16, speckle_window_size=0, min_disparity=2))
 
 
-@pytest.mark.cuda
-def test_bm_and_lr_kernels_match_plain_on_cuda():
-    dev = cuda_or_skip()
-    H, W, D, bs = 40, 200, 32, 13
-    lp, rp = _prefiltered(4, H, W, 9)
-    got = bm_cost_wta(t(lp, dev), t(rp, dev), D, bs)
-    ref = bm_cost_wta_plain(t(lp, dev), t(rp, dev), D, bs)
-    for g, r in zip(got, ref):
-        assert (g == r).all()
-    d_match, key = _lr_inputs(5, H, W, D)
-    kw = dict(n_w=D + 1, r_lo=0, n_r=D + 1, Dpow=8192, c0=-2048, invalid=-16)
-    dm, k = t(d_match, dev), t(key, dev)
-    for g, r in zip(lr_resolve(dm, k, (dm,), **kw),
-                    lr_resolve_plain(dm, k, (dm,), **kw)):
-        assert (g == r).all()
+@pytest.mark.parametrize("bs", [5, 13, 21])
+@pytest.mark.parametrize("D", [1, 64, 100, 128, 192, 256])
+def test_bm_plan(D, bs):
+    """K8's plan: whole warps, a block that fits with at least two resident
+    on an SM, the halo and priming overheads bounded on full frames, and
+    narrow frames served by narrower tiles. (The kernel itself against its
+    plain version: tests/test_torch_bm_cuda.py, on the card.)"""
+    for H, W in ((720, 1280), (1080, 1920), (97, 301), (50, 64), (5, 200)):
+        plan = bm_plan(H, W, D, bs, H100_SMEM_PER_SM)
+        assert plan.tx == PIXELS_PER_WARP * plan.warps and 1 <= plan.warps <= MAX_WARPS
+        assert plan.smem == bm_smem(plan.tx, D, bs) <= H100_SMEM_PER_SM - SMEM_RESERVED
+        assert plan.resident >= 2
+        assert plan.resident * (plan.smem + SMEM_RESERVED) <= H100_SMEM_PER_SM
+        assert 1 <= plan.ty <= H
+        if W >= 1280:
+            assert (plan.tx + bs - 1) / plan.tx <= 1.2
+            assert (plan.ty + bs - 1) / plan.ty <= 1.5
+            # enough blocks to spread over the H100's 132 SMs
+            assert -(-W // plan.tx) * -(-H // plan.ty) >= 132
+    # an SM that holds less than the narrowest block: nothing fits
+    with pytest.raises(ValueError):
+        bm_plan(720, 1280, D, bs, bm_smem(PIXELS_PER_WARP, D, bs))
+    # the widest window the wrapper takes, on an SM of half the H100's
+    with pytest.raises(ValueError):
+        bm_plan(720, 1280, 256, 181, H100_SMEM_PER_SM // 2)
+    for bad_d, bad_bs in ((0, bs), (257, bs), (D, bs + 1)):
+        with pytest.raises(ValueError):
+            bm_plan(720, 1280, bad_d, bad_bs, H100_SMEM_PER_SM)

@@ -46,24 +46,18 @@ line.
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
 import sys
+
+import torch_timing as tt
 
 
 def _setup(root: str):
-    sys.path.insert(0, root)
-    import torch
-
-    import chip_smoke as cs
+    cs, torch = tt.setup(root)
     from rt_depth_map_tpu_torch.ops import sgbm as sg
     from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
-    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, _build
     from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume
     from rt_depth_map_tpu_torch.ops.remap import remap_bilinear
 
-    _build.build_all(sorted({src.rsplit("/", 1)[1][:-3] for _, src, _ in KERNELS}))
     dev = torch.device("cuda")
 
     def frames(w, h, d, num_paths=8):
@@ -85,19 +79,6 @@ def _setup(root: str):
     return cs, torch, frames
 
 
-def _b2b_ms(torch, fn, n=20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / n
-
-
 def _child(root: str) -> dict:
     cs, torch, frames = _setup(root)
     from rt_depth_map_tpu_torch.ops import sgbm as sg
@@ -109,7 +90,7 @@ def _child(root: str) -> dict:
 
     def time(name, fn):
         out["ms"][name] = cs._time_ms(fn, reps=51)
-        out["ms_b2b"][name] = _b2b_ms(torch, fn)
+        out["ms_b2b"][name] = tt.b2b_ms(torch, fn)
 
     sh, sw, sd = cs.STRETCH
     for (w, h, d), what, paths in (((sw, sh, sd), "1080p D=256", 8),
@@ -180,7 +161,7 @@ def _sweep(root: str) -> dict:
                         raise AssertionError(f"{key} ring {ring} rows {rows}: "
                                              f"differs from the wrapper")
                     res[f"ring {ring} rows {rows}"] = min(
-                        _b2b_ms(torch, call) for _ in range(3))
+                        tt.b2b_ms(torch, call) for _ in range(3))
             out["ms_b2b"][key] = res
         del C, hf
         torch.cuda.empty_cache()
@@ -209,43 +190,15 @@ ABLATIONS = [
 
 
 def _ablate(root: str) -> dict:
-    sys.path.insert(0, root)
-    import ctypes
-
+    cs, torch = tt.setup(root)
     import numpy as np
-    import torch
 
-    import chip_smoke as cs
     from rt_depth_map_tpu_torch.ops.cuda import _build
     from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import horiz_pass_plan
 
-    out_dir = _build.BUILD_DIR.parent / "sweep" / "horiz_pass"
-    procs = []
-    for i, (_, subs) in enumerate(ABLATIONS):
-        d = out_dir / str(i)
-        d.mkdir(parents=True, exist_ok=True)
-        texts = {f.name: f.read_text() for f in _build.CSRC_DIR.iterdir()
-                 if f.suffix in (".cu", ".cuh")}
-        for name, old, new in subs:
-            if old not in texts[name]:
-                raise RuntimeError(f"ablation {i}: {old!r} not in {name}")
-            texts[name] = texts[name].replace(old, new)
-        for name, text in texts.items():
-            (d / name).write_text(text)
-        so = d / "sgm_hdw.so"
-        procs.append((so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(d / "sgm_hdw.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    libs = []
-    for so, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {so}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        fn = lib.rtdm_sgm_horiz_pass
-        fn.argtypes = [_build.P, _build.I, _build.P, _build.P] + [_build.I] * 9 + [_build.P]
-        fn.restype = _build.I
-        libs.append(fn)
+    P, I = _build.P, _build.I
+    libs = tt.build_ablations("sgm_hdw", [subs for _, subs in ABLATIONS],
+                              "rtdm_sgm_horiz_pass", [P, I, P, P] + [I] * 9 + [P])
     rng = np.random.default_rng(0)
     out = {"card": cs._card(), "root": root, "ms_b2b": {}}
     sh, sw, sd = cs.STRETCH
@@ -256,39 +209,17 @@ def _ablate(root: str) -> dict:
         plan = horiz_pass_plan(D, 2, False, H,
                                torch.cuda.get_device_properties(0).multi_processor_count)
         res = {}
-        for (name, _), fn in zip(ABLATIONS, libs):
+        for (name, _), (lib, fn) in zip(ABLATIONS, libs):
             def call():
                 err = fn(C.data_ptr(), 2, None, O.data_ptr(), H, W1, D, 0, 0, 600,
-                         2400, plan.ring, plan.rows,
-                         torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"{name}: CUDA error {err}")
-            res[name] = min(_b2b_ms(torch, call) for _ in range(3))
+                         2400, plan.ring, plan.rows, _build.stream_of(C))
+                _build.check(lib, err, name)
+            res[name] = min(tt.b2b_ms(torch, call) for _ in range(3))
         out["ms_b2b"][f"K9a {what} L->R, ring {plan.ring} rows {plan.rows}"] = res
         del C, O
     return out
 
 
-def main() -> int:
-    modes = {"--child": _child, "--sweep-child": _sweep, "--ablate-child": _ablate}
-    if len(sys.argv) == 3 and sys.argv[1] in modes:
-        print(json.dumps(modes[sys.argv[1]](sys.argv[2])), flush=True)
-        return 0
-    mode = sys.argv[1] if len(sys.argv) == 3 and sys.argv[1] in (
-        "--sweep", "--ablate") else None
-    roots = sys.argv[2:] if mode else sys.argv[1:]
-    if not roots or (not mode and any(r.startswith("--") for r in roots)):
-        print(__doc__, file=sys.stderr)
-        return 2
-    rc = 0
-    for root in roots:
-        root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               f"{mode}-child" if mode else "--child", root],
-                              cwd=root)
-        rc = rc or proc.returncode
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tt.main(__file__, __doc__, {
+        "--child": _child, "--sweep-child": _sweep, "--ablate-child": _ablate}))

@@ -30,21 +30,16 @@ figure is device time alone.
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
 import sys
+
+import torch_timing as tt
 
 
 def _child(root: str) -> dict:
-    sys.path.insert(0, root)
-    import torch
-
-    import chip_smoke as cs
+    cs, torch = tt.setup(root)
     from rt_depth_map_tpu_torch.ops import sgbm as sg
     from rt_depth_map_tpu_torch.ops.cc import connected_components_bbox
     from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
-    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, _build
     from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume
     from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (
         sgm_final_wta,
@@ -55,23 +50,13 @@ def _child(root: str) -> dict:
     from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta
     from rt_depth_map_tpu_torch.ops.remap import remap_bilinear
 
-    _build.build_all(sorted({src.rsplit("/", 1)[1][:-3] for _, src, _ in KERNELS}))
     dev = torch.device("cuda")
     out = {"card": cs._card(), "root": root, "ms": {}, "ms_b2b": {}}
 
     def time(name, fn):
         """chip_smoke's median of fn, and fn issued 20 times back to back."""
         out["ms"][name] = cs._time_ms(fn, reps=51)
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(20):
-            fn()
-        b.record()
-        b.synchronize()
-        out["ms_b2b"][name] = a.elapsed_time(b) / 20
+        out["ms_b2b"][name] = tt.b2b_ms(torch, fn)
 
     def frames(w, h, d):
         eng = cs._engine("sgm", w, h, d=d)
@@ -118,21 +103,5 @@ def _child(root: str) -> dict:
     return out
 
 
-def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        print(json.dumps(_child(sys.argv[2])), flush=True)
-        return 0
-    if len(sys.argv) < 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    rc = 0
-    for root in sys.argv[1:]:
-        root = os.path.abspath(root)
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--child", root], cwd=root)
-        rc = rc or proc.returncode
-    return rc
-
-
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(tt.main(__file__, __doc__, {"--child": _child}))
