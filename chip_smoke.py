@@ -16,7 +16,13 @@ the script exits non-zero:
      build/torch_kernels/;
   3. kernels: each kernel against its plain PyTorch version on the card, at
      the shapes of the frame programs, exact equality, and the median time
-     of both (CUDA events): K2 on the frame mask (4 fields, 8-connected),
+     of both (CUDA events) beside the kernel's time a call of 20 issued back
+     to back between two events (device time where the kernel outlasts its
+     wrapper's host work) and its device time a call (torch.profiler, the
+     call's device activities alone): K1 as the frame
+     programs launch it (`rectify_pair`: both views, three planes, one
+     launch) and as `remap_u8` (one image of 1 to 4 channels); K2 on the
+     frame mask (4 fields, 8-connected),
      on a snake whose sweep count (read from the device after a
      synchronise) stops at the 16-sweep cap, and on both speckle calls (1
      field, 4-connected value edges) at 1280x720 and 1920x1080; the bidir
@@ -44,7 +50,8 @@ the script exits non-zero:
      the flagship and odd shapes); K4 must make one CUDA launch a call
      (the library's own count); the bidir and chained 8-path routes timed
      on the flagship and stretch volumes, which must give the same winners;
-     a snake through the speckle path where the 16-sweep cap binds; the BM
+     a snake through the speckle path where the 16-sweep cap binds; K8 at
+     1920x1080 also at D=288 and 384 (12 d a lane, a 9-bit key); the BM
      and SGM matchers against the repo's numpy goldens (cv2.StereoBM and
      cv2.StereoSGBM parity: MODE_SGBM, the causal 4 paths and MODE_HH on
      both of its routes);
@@ -60,12 +67,16 @@ the script exits non-zero:
   6. engine, BM (D=128, block size 13, speckle filter on): the same checks
      on its own path, counted apart; its timing, stage profile and device
      time a frame (K8 itself is checked in phase 3 at 720p D=128 and D=192,
-     1920x1080 D=256, D=100 bs=5 and a ragged crop at bs=21);
+     1920x1080 D=256, 288 and 384, D=100 bs=5 and a ragged crop at bs=21);
   7. engine, the stretch point (1920x1080, 8-path SGM, D=256; H % 16 != 0,
      so the chained route): the same checks on two frames, the bidir
      kernels must not launch; its timing and stage profile;
   8. engine, cv2 MODE_SGBM (1280x720, 5 paths, D=128): the same checks, K9c
-     and the bidir kernels must not launch; its timing and stage profile.
+     and the bidir kernels must not launch; its timing and stage profile;
+  9. engine, the default BM matcher on a 1920x1080 camera: a configuration
+     written for 1280x720 (D=192, block size 13) scales D with the width to
+     288; the same checks on two frames (K8 must launch); its timing and
+     stage profile.
 
 The last lines are the kernels' JSON summary (each kernel's first timed
 case, and under `cases` every timed case with its own bound and library
@@ -107,11 +118,11 @@ PEAK_BYTES = 3.35e12
 PEAK_OPS = None
 #: the kernels of each frame program: the SGM one (bidir route), the BM
 #: one, 8-path SGM on the chained route, and cv2 MODE_SGBM (5 paths)
-_SGM_COMMON = ("remap_u8", "seg_min_propagate", "sgm_cost_volume", "lr_resolve",
-               "label_histogram_banded")
+_SGM_COMMON = ("rectify_pair", "seg_min_propagate", "sgm_cost_volume",
+               "lr_resolve", "label_histogram_banded")
 BIDIR = ("vol_transpose", "sgm_horiz", "sgm_vert_wta")
 SGM_PATH = _SGM_COMMON + BIDIR
-BM_PATH = ("remap_u8", "seg_min_propagate", "bm_cost_wta", "lr_resolve",
+BM_PATH = ("rectify_pair", "seg_min_propagate", "bm_cost_wta", "lr_resolve",
            "label_histogram_banded")
 CHAINED_PATH = _SGM_COMMON + ("sgm_horiz_pass", "sgm_vert_pass", "sgm_final_wta")
 SGBM5_PATH = _SGM_COMMON + ("sgm_horiz_pass", "sgm_final_wta")
@@ -140,6 +151,26 @@ def _time_ms(fn, reps=15, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _b2b_ms(fn, n=20):
+    """Milliseconds a call of fn, n calls issued back to back between two
+    CUDA events after one to warm up (the host's work before each launch
+    overlaps the previous kernel: device time where the kernel outlasts
+    that work, the host's time where it does not; as tools/torch_timing.py
+    b2b_ms)."""
+    import torch
+
+    fn()
+    _sync()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
 
 
 def _wall_ms(fn, reps):
@@ -251,8 +282,13 @@ def _source(w, h, ring=0):
 
 
 def _config(kind, w, h, d=D, num_paths=8):
+    """kind "sgm" (D = d), "bm" (bench.py's BM point) or "bm-default" (the
+    BM defaults of a configuration written for 1280x720, whose D the engine
+    scales with the camera's width: 288 at 1920)."""
     from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 
+    if kind == "bm-default":
+        return EngineConfig(matcher=MatcherConfig(kind="bm"))
     if kind == "sgm":
         m = MatcherConfig(kind="sgm", num_disparities=d, block_size=BS,
                           num_paths=num_paths, pre_filter_cap=0)
@@ -290,8 +326,9 @@ def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
 
     from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
-    what = f"phase {phase} {f'sgm-{num_paths}' if kind == 'sgm' else 'bm'} engine {w}x{h}"
     eng = _engine(kind, w, h, d=d, num_paths=num_paths)
+    what = (f"phase {phase} {f'sgm-{num_paths}' if kind == 'sgm' else kind} engine "
+            f"{w}x{h} D={eng.num_disparities}")
     eng.warmup()
     results = {}
     reset_launch_counts()
@@ -374,8 +411,10 @@ def _stage_profile(eng, left, right, frames=20):
 
 
 def _device_busy(fn, frames=5):
-    """(device ms per frame, wall ms per frame) from torch.profiler over
-    `frames` calls of fn; device time sums the kernels' self device time."""
+    """(device ms per call, wall ms per call, device operations per call)
+    from torch.profiler over `frames` calls of fn; device time sums the
+    device activities' self time (kernels, copies, fills), and the
+    operations count them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -387,10 +426,10 @@ def _device_busy(fn, frames=5):
             fn()
         _sync()
         wall = (time.perf_counter() - t0) * 1e3 / frames
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     dev_us = sum(getattr(e, "self_device_time_total", None)
-                 or getattr(e, "self_cuda_time_total", 0.0)
-                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-    return dev_us / 1e3 / frames, wall
+                 or getattr(e, "self_cuda_time_total", 0.0) for e in events)
+    return dev_us / 1e3 / frames, wall, sum(e.count for e in events) / frames
 
 
 def main() -> int:
@@ -421,7 +460,12 @@ def main() -> int:
         label_histogram_plain,
     )
     from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
-    from rt_depth_map_tpu_torch.ops.cuda.remap import remap_u8, remap_u8_plain
+    from rt_depth_map_tpu_torch.ops.cuda.remap import (
+        rectify_pair,
+        rectify_pair_plain,
+        remap_u8,
+        remap_u8_plain,
+    )
     from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
         sgm_cost_volume,
         sgm_cost_volume_plain,
@@ -498,8 +542,7 @@ def main() -> int:
     left_np, right_np, _, _ = _source(W, H).render(0)
     left = torch.from_numpy(left_np).to(dev)
     right = torch.from_numpy(right_np).to(dev)
-    lstack = torch.cat([rgb_to_gray(left)[..., None], left], dim=-1).contiguous()
-    rgray = rgb_to_gray(right)[..., None].contiguous()
+    planes = (rgb_to_gray(left), left, rgb_to_gray(right))
     stats = {}
 
     def check(wrapper, kernel_fn, plain_fn, what, bound=None, library_fn=None,
@@ -520,15 +563,19 @@ def main() -> int:
             print(f"phase 3 {wrapper.__name__} {what}: exact", flush=True)
             return
         ms = _time_ms(kernel_fn)
+        ms_b2b = _b2b_ms(kernel_fn)
+        device_ms = _device_busy(kernel_fn, frames=20)[0]
         plain_ms = _time_ms(plain_fn, reps=plain_reps, warm=1)
         b_ms, b_by = _bound(*bound)
         lib_ms = _time_ms(library_fn) if library_fn is not None else None
-        line = (f"phase 3 {wrapper.__name__} {what}: exact, {ms:.4f} ms (plain "
+        line = (f"phase 3 {wrapper.__name__} {what}: exact, {ms:.4f} ms, "
+                f"{ms_b2b:.4f} ms back to back, {device_ms:.4f} ms device (plain "
                 f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by}")
         if lib_ms is not None:
             line += f", library {lib_ms:.4f} ms"
-        case = dict(what=what, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                    bound_by=b_by, library_ms=lib_ms)
+        case = dict(what=what, ms=ms, ms_b2b=ms_b2b, device_ms=device_ms,
+                    plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms)
         entry = stats.setdefault(wrapper.__name__, dict(max_abs_err=0, cases=[]))
         if primary and "ms" not in entry:
             entry.update({k: v for k, v in case.items() if k != "what"})
@@ -537,16 +584,25 @@ def main() -> int:
             stats[wrapper.__name__]["max_abs_err"], err)
         print(line + ")", flush=True)
 
-    # K1: left 4-channel and right gray planes through the warped maps
-    # (~16 fp32 and int32 operations per output value: four taps, weights,
-    # rounding)
-    for what, img, tab in (("left gray+RGB", lstack, st.left),
-                           ("right gray", rgray, st.right)):
-        args = (img, tab.ix, tab.iy, tab.fx, tab.fy, tab.valid)
-        out_b = tab.ix.numel() * img.shape[-1]
-        check(remap_u8, lambda a=args: remap_u8(*a),
-              lambda a=args: remap_u8_plain(*a), what,
-              bound=(_nbytes(*args), out_b, 16 * out_b))
+    # K1 as the frame programs launch it: both views' three planes through
+    # the warped maps in one launch (each packed table and source read once,
+    # each output written once: 26 bytes a pixel; ~16 int32 operations per
+    # output value: four taps, weights, rounding); then remap_u8, one image
+    # of 1 to 4 channels on the same device code (3 timed)
+    rect = rectify_pair(*planes, st.left, st.right)
+    out_b = _nbytes(*rect)
+    check(rectify_pair, lambda: rectify_pair(*planes, st.left, st.right),
+          lambda: rectify_pair_plain(*planes, st.left, st.right),
+          f"{W}x{H} both views",
+          bound=(_nbytes(st.left.packed, st.right.packed, *planes), out_b,
+                 16 * out_b))
+    for c in (3, 1, 2, 4):
+        img = left if c == 3 else torch.cat([planes[0][..., None]] * c, -1)
+        tab = st.left if c != 1 else st.right
+        out_b = tab.packed.numel() * c
+        check(remap_u8, lambda i=img, b=tab: remap_u8(i, b),
+              lambda i=img, b=tab: remap_u8_plain(i, b), f"{W}x{H} {c} channels",
+              bound=(_nbytes(tab.packed, img), out_b, 16 * out_b), timed=c == 3)
 
     def sweeps_run():
         """The last K2 call's sweep count, a device value: synchronise first."""
@@ -592,8 +648,7 @@ def main() -> int:
     # flagship and odd shapes, the chained passes at the stretch and odd
     # shapes; K6 with the SGBM parameters; K7 and K10 on the SGM
     # disparity's value-edge components
-    lrect = remap_bilinear(lstack, st.left, plain=True)[..., 0].contiguous()
-    rrect = remap_bilinear(rgray, st.right, plain=True)[..., 0].contiguous()
+    lrect, _, rrect = rectify_pair_plain(*planes, st.left, st.right)
     m = st.matcher
     p1, p2 = m.p1, max(m.p2, m.p1 + 1)
     ur = m.uniqueness_ratio
@@ -1046,12 +1101,16 @@ def main() -> int:
     # 16-bit add and subtract), the horizontal one (the same, 32-bit where a
     # window cost passes 16 bits) and the min (32-bit); five (H, W) int32
     # outputs; 720p at D=128 (the BM path's call, primary) and at the
-    # reference's default D=192, 1920x1080 at D=256, then checked only:
-    # D=100 (lanes of 4 d, the last ones idle) and a ragged crop
+    # reference's default D=192, 1920x1080 at D=256, 288 (the default BM
+    # matcher on that camera: phase 9) and 384 (12 d a lane, a 9-bit key),
+    # then checked only: D=100 (lanes of 4 d, the last ones idle) and a
+    # ragged crop
     for a, b, d, bs, what, timed in (
             (lp, rp, BM_D, BM_BS, f"D={BM_D} bs={BM_BS}", True),
             (lp, rp, 192, BM_BS, f"D=192 bs={BM_BS}", True),
             (slp, srp, str_d, BM_BS, f"{str_w}x{str_h} D={str_d} bs={BM_BS}", True),
+            (slp, srp, 288, BM_BS, f"{str_w}x{str_h} D=288 bs={BM_BS}", True),
+            (slp, srp, 384, BM_BS, f"{str_w}x{str_h} D=384 bs={BM_BS}", True),
             (lp, rp, 100, 5, "D=100 bs=5", False),
             (lp[3:300, 5:1006].contiguous(), rp[3:300, 5:1006].contiguous(),
              BM_D, 21, "297x1001 D=128 bs=21", False)):
@@ -1131,10 +1190,11 @@ def main() -> int:
         for k, v in prof.items():
             print(f"phase {phase} stage {k}: {v:.4f} ms", flush=True)
         print(f"phase {phase} stage sum: {sum(prof.values()):.3f} ms", flush=True)
-        dev_ms, wall_ms = _device_busy(lambda: eng.frame_program(*pair))
+        dev_ms, wall_ms, ops = _device_busy(lambda: eng.frame_program(*pair))
         print(f"phase {phase} torch.profiler: {dev_ms:.3f} ms of device time per "
               f"frame against {wall_ms:.3f} ms of wall time (busy "
-              f"{dev_ms / wall_ms:.3f})", flush=True)
+              f"{dev_ms / wall_ms:.3f}), {ops:g} device operations a frame",
+              flush=True)
 
     profile(5, sgm_eng, pair, 20)
     del sgm_eng
@@ -1165,13 +1225,25 @@ def main() -> int:
     profile(8, sgbm5_eng, pair, 10)
     del sgbm5_eng
 
+    # -- 9. the default BM matcher on a 1920x1080 camera (D = 288) -----------
+    bmd_eng, bmd_launches = _check_engine(9, "bm-default", str_w, str_h, BM_PATH,
+                                          frames=STRETCH_FRAMES)
+    if bmd_eng.num_disparities != 288:
+        raise AssertionError(f"phase 9: D={bmd_eng.num_disparities}, not 288")
+    bmd_ms = _wall_ms(lambda: bmd_eng.frame_program(*spair), reps=10)
+    print(f"phase 9 BM 1920x1080 D=288 timing on {card}: frame program "
+          f"{bmd_ms:.3f} ms", flush=True)
+    profile(9, bmd_eng, spair, 10)
+    del bmd_eng
+
     # each kernel's launches on the path that runs it: the flagship's for
     # its kernels, the stretch run's for the chained passes, the BM run's
     # for K8 (K10 runs on none); launches_by_path holds every run's counts
     runs = {f"sgm-8 {W}x{H} D={D} (bidir)": sgm_launches,
             f"bm {W}x{H} D={BM_D}": bm_launches,
             f"sgm-8 {str_w}x{str_h} D={str_d} (chained)": str_launches,
-            f"sgm-5 {W}x{H} D={D} (chained)": sgbm5_launches}
+            f"sgm-5 {W}x{H} D={D} (chained)": sgbm5_launches,
+            f"bm {str_w}x{str_h} D=288 (default)": bmd_launches}
     kernels = []
     for wrapper, source, replaces in KERNELS:
         n = wrapper.__name__
@@ -1183,6 +1255,7 @@ def main() -> int:
                             max_abs_err=s["max_abs_err"], ms=s["ms"],
                             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"],
                             bound_by=s["bound_by"], library_ms=s["library_ms"],
+                            ms_b2b=s["ms_b2b"], device_ms=s["device_ms"],
                             launches_by_path={k: v[n] for k, v in runs.items()},
                             cases=s["cases"]))
     print(json.dumps({"kernels": kernels}))

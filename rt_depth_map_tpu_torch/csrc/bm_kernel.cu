@@ -9,7 +9,8 @@
 //
 // Outputs, each (H, W) int32:
 //   best_d       argmin over d, ties to the LARGEST d (packed key
-//                cost * 256 + (D - 1 - d), as bm_kernel.py:16-18)
+//                cost << B | (D - 1 - d), B = 8 bits as bm_kernel.py:16-18
+//                for D <= 256, 9 for 256 < D <= 384)
 //   best_cost    cost at best_d
 //   c_m1, c_p1   cost at best_d - 1 / best_d + 1 (0 where that d is outside
 //                [0, D))
@@ -32,7 +33,9 @@
 // - Horizontal slide and winner: a warp owns BM_PW = 32 output pixels of
 //   the row, one a lane, as two runs of 16 slid side by side (two
 //   independent chains); its lanes hold K = D / 32 (rounded up to 1, 2, 4
-//   or 8) consecutive d and keep their K window costs in registers (two
+//   or 8; 12 above D = 256, whose 24 runs of 16 d do not divide a block's
+//   threads, so the threads past whole items idle in the vertical slide)
+//   consecutive d and keep their K window costs in registers (two
 //   16-bit costs a word where bs^2 * 255 < 2^16), cost(x + 1) = cost(x) +
 //   V[x + 1 + w2] - V[x - w2], one 32-bit add a word. The winner is one
 //   __reduce_min_sync of the packed keys, min_outside a second one over
@@ -53,6 +56,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "async_copy.cuh"
 
 #define BM_FULL 0xffffffffu
@@ -63,6 +68,12 @@
 #define BM_RUNS 2   // runs of pixels a warp slides side by side
 #define BM_MAX_WARPS 8
 #define BM_RPAD 32  // bytes before the R ring: a row's reads start up to 18 early
+
+// Bits of the packed key's d field at K d a lane: D <= 256 below K = 12.
+template <int K>
+__host__ __device__ constexpr int bm_key_bits() {
+  return K > 8 ? 9 : 8;
+}
 
 // Sizes of the shared-memory layout (bytes). ops/cuda/bm_kernel.py bm_smem
 // reckons the same total for its plan; rtdm_bm_cost_wta refuses a plan
@@ -224,6 +235,25 @@ struct BmCosts {
   typedef LaneVec<uint16_t, K> Wide;
   uint32_t c[N];
 
+  // cost += V[col_in] - V[col_out] at K = 12: a lane's 24 bytes as three
+  // 8-byte pieces (a vector's alignment must be a power of two)
+  __device__ __forceinline__ void add12(const uint16_t* col_in,
+                                        const uint16_t* col_out, int lane) {
+    typedef typename std::conditional<PACK, uint32_t, uint16_t>::type E;
+    constexpr int PE = 8 / sizeof(E);  // elements a piece
+    typedef LaneVec<E, PE> Piece;
+    const Piece* a = (const Piece*)col_in + 3 * lane;
+    const Piece* b = (const Piece*)col_out + 3 * lane;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const Piece pa = a[i];
+      const Piece pb = col_out ? b[i] : Piece{};
+#pragma unroll
+      for (int q = 0; q < PE; ++q)
+        c[i * PE + q] = c[i * PE + q] + pa.v[q] - pb.v[q];
+    }
+  }
+
   // cost = the sum of V's columns col .. col + bs - 1
   __device__ __forceinline__ void prime(const uint16_t* col, int DS, int bs,
                                         int lane) {
@@ -235,7 +265,9 @@ struct BmCosts {
   // cost += V[col_in] - V[col_out] (col_out may be null)
   __device__ __forceinline__ void add(const uint16_t* col_in,
                                       const uint16_t* col_out, int lane) {
-    if constexpr (PACK) {
+    if constexpr (K == 12) {
+      add12(col_in, col_out, lane);
+    } else if constexpr (PACK) {
       const Packed a = ((const Packed*)col_in)[lane];
       const Packed b = col_out ? ((const Packed*)col_out)[lane] : Packed{};
 #pragma unroll
@@ -248,16 +280,18 @@ struct BmCosts {
     }
   }
 
-  // keys cost * 256 + koff (koff < 256, or BIG where d >= D and cost = 0)
+  // keys cost << B | koff (koff < 2^B, or BIG where d >= D and cost = 0)
   __device__ __forceinline__ void keys(const int (&koff)[K],
                                        int (&key)[K]) const {
+    constexpr int B = bm_key_bits<K>();
+    constexpr uint32_t M = 0xffffu << B;  // a 16-bit cost in the key
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       if constexpr (PACK) {
-        key[2 * j] = (int)((c[j] << 8) & 0xffff00u) | koff[2 * j];
-        key[2 * j + 1] = (int)((c[j] >> 8) & 0xffff00u) | koff[2 * j + 1];
+        key[2 * j] = (int)((c[j] << B) & M) | koff[2 * j];
+        key[2 * j + 1] = (int)((c[j] >> (16 - B)) & M) | koff[2 * j + 1];
       } else {
-        key[j] = (int)(c[j] << 8) | koff[j];
+        key[j] = (int)(c[j] << B) | koff[j];
       }
     }
   }
@@ -279,7 +313,7 @@ __device__ __forceinline__ void bm_winner(const int (&key)[K],
 #pragma unroll
   for (int k = 1; k < K; ++k) kmin = min(kmin, key[k]);
   const int k1 = __reduce_min_sync(BM_FULL, kmin);
-  const int best = D - 1 - (k1 & 255);
+  const int best = D - 1 - (k1 & ((1 << bm_key_bits<K>()) - 1));
   int kout = BM_BIGKEY;
 #pragma unroll
   for (int k = 0; k < K; ++k)
@@ -359,10 +393,12 @@ bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
   cp_async_commit();
 
   // vertical items: this thread's run of 16 d (the same on every row) at
-  // columns col0, col0 + cstep, ...; runs beyond D stay idle
+  // columns col0, col0 + cstep, ...; runs beyond D stay idle, and so do
+  // the threads past whole items where RP does not divide nt (K = 12)
   constexpr int RP = 2 * K;  // runs of 16 d in DS
-  const int d16 = (t % RP) * 16;
   const int col0 = t / RP, cstep = nt / RP;
+  const int d16 =
+      (RP & (RP - 1)) == 0 || t < cstep * RP ? (t % RP) * 16 : s.DS;
   uint16_t* Vt = V + d16;
 
   const int d0 = lane * K;
@@ -431,12 +467,13 @@ bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
                   lane);
     }
     if (lane < n_pix) {
+      constexpr int B = bm_key_bits<K>();
       const size_t o = (size_t)y * W + x0 + i_first + lane;
       best_d_out[o] = keep.bd;
-      best_c_out[o] = keep.k1 >> 8;
-      cm1_out[o] = keep.bd > 0 ? keep.km >> 8 : 0;
-      cp1_out[o] = keep.bd < D - 1 ? keep.kp >> 8 : 0;
-      mout_out[o] = keep.ko == BM_BIGKEY ? BM_NONE : keep.ko >> 8;
+      best_c_out[o] = keep.k1 >> B;
+      cm1_out[o] = keep.bd > 0 ? keep.km >> B : 0;
+      cp1_out[o] = keep.bd < D - 1 ? keep.kp >> B : 0;
+      mout_out[o] = keep.ko == BM_BIGKEY ? BM_NONE : keep.ko >> B;
     }
   }
 }
@@ -462,7 +499,8 @@ static int bm_launch(const void* lp, const void* rp, int H, int W, int D,
 }
 
 // lp, rp: (H, W) uint8 prefiltered planes; outputs (H, W) int32 each.
-// Requires 1 <= D <= 256, odd bs, bs^2 * 255 * 256 < 2^31 and a plan from
+// Requires 1 <= D <= 384, odd bs, bs^2 * 255 * 2^B < 2^31 (B = 8 bits for
+// D <= 256, else 9: bs <= 127) and a plan from
 // bm_plan: 1 <= warps <= BM_MAX_WARPS (BM_PW output columns each), TY >= 1
 // rows a block, and smem the plan's shared-memory bytes a block, which must
 // equal bm_layout's total.
@@ -470,8 +508,9 @@ extern "C" int rtdm_bm_cost_wta(const void* lp, const void* rp, int H, int W,
                                 int D, int bs, void* best_d, void* best_c,
                                 void* c_m1, void* c_p1, void* min_out,
                                 int warps, int TY, int smem, void* stream) {
-  if (D < 1 || D > 256 || bs % 2 == 0 || warps < 1 ||
-      warps > BM_MAX_WARPS || TY < 1)
+  const long long key_max = (long long)bs * bs * 255 << (D > 256 ? 9 : 8);
+  if (D < 1 || D > 384 || bs % 2 == 0 || key_max >= (1LL << 31) ||
+      warps < 1 || warps > BM_MAX_WARPS || TY < 1)
     return (int)cudaErrorInvalidValue;
   const int k = (D + 31) / 32;
   const bool pack = bs * bs * 255 < 65536;
@@ -482,7 +521,9 @@ extern "C" int rtdm_bm_cost_wta(const void* lp, const void* rp, int H, int W,
     return pack ? bm_launch<2, true>(BM_ARGS) : bm_launch<2, false>(BM_ARGS);
   if (k <= 4)
     return pack ? bm_launch<4, true>(BM_ARGS) : bm_launch<4, false>(BM_ARGS);
-  return pack ? bm_launch<8, true>(BM_ARGS) : bm_launch<8, false>(BM_ARGS);
+  if (k <= 8)
+    return pack ? bm_launch<8, true>(BM_ARGS) : bm_launch<8, false>(BM_ARGS);
+  return pack ? bm_launch<12, true>(BM_ARGS) : bm_launch<12, false>(BM_ARGS);
 #undef BM_ARGS
 }
 

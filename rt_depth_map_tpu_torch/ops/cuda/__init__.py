@@ -14,7 +14,7 @@ from rt_depth_map_tpu_torch.ops.cuda.histogram import (  # noqa: F401
     label_histogram_banded,
 )
 from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve  # noqa: F401
-from rt_depth_map_tpu_torch.ops.cuda.remap import remap_u8  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.remap import rectify_pair, remap_u8  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
     sgm_final_wta,
@@ -27,6 +27,8 @@ from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import vol_transpose  # noqa:
 
 #: (wrapper, csrc file, TPU kernels it replaces) for every kernel of the port
 KERNELS = (
+    (rectify_pair, "rt_depth_map_tpu_torch/csrc/remap.cu",
+     "rt_depth_map_tpu/ops/pallas/remap_plan.py:291"),
     (remap_u8, "rt_depth_map_tpu_torch/csrc/remap.cu",
      "rt_depth_map_tpu/ops/pallas/remap_plan.py:291"),
     (seg_min_propagate, "rt_depth_map_tpu_torch/csrc/cc_sweep.cu",

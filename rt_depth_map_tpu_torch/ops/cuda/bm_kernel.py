@@ -19,7 +19,9 @@ with warp reductions. The (D, H, W) volume never reaches device memory;
 one CUDA launch a call.
 
 `bm_cost_wta` launches the kernel for CUDA tensors and runs
-`bm_cost_wta_plain` for CPU tensors; any other device raises.
+`bm_cost_wta_plain` for CPU tensors; any other device raises. The card
+takes 1 <= D <= MAX_D, where the BM LR check's packed key also ends
+(`ops/bm.py` `lr_key_planes`); the plain version takes any D.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch.nn.functional as F
 from rt_depth_map_tpu_torch.ops.cuda import _build
 
 MIN_OUTSIDE_NONE = 2**28
+#: the most disparities the kernel takes: 12 a lane (csrc/bm_kernel.cu)
+MAX_D = 384
 
 #: shared memory the card reserves for each resident block, which is also
 #: what a block may not take of its SM's (bytes; sm_80 and later)
@@ -41,13 +45,16 @@ SMEM_RESERVED = 1024
 PIXELS_PER_WARP = 32
 #: the most warps a block takes (BM_MAX_WARPS)
 MAX_WARPS = 8
-#: the fewest columns of a tile at D <= 128 and at D > 128 (on the H100, 128
-#: beat 64 at D = 192 and 256 and tied at D = 128: `tools/time_torch_bm.py
+#: the fewest columns of a tile at D <= 128, 128 < D <= 256 and D > 256
+#: (on the H100, 128 beat 64 at D = 192 and 256 and tied at D = 128; above
+#: D = 256, 64 columns by 48 rows beat 96 by 32, the widest two blocks an
+#: SM hold, by 13% at 1920x1080 D = 288 and 384: `tools/time_torch_bm.py
 #: --sweep`)
-MIN_COLUMNS = (64, 128)
-#: the fewest rows of a stripe (on the H100, 32 rows at 1280x720 and
-#: 1920x1080 beat 12-24, 40 and 48: `tools/time_torch_bm.py --sweep`)
-MIN_ROWS = 32
+MIN_COLUMNS = (64, 128, 64)
+#: the fewest rows of a stripe at D <= 256 and D > 256 (on the H100, 32
+#: rows at 1280x720 and 1920x1080 beat 12-24, 40 and 48 at D <= 256:
+#: `tools/time_torch_bm.py --sweep`)
+MIN_ROWS = (32, 48)
 
 
 def _sliding_sum(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
@@ -82,9 +89,10 @@ def bm_cost_wta_plain(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
     D = num_disp
     cost = cost_volume(lp, rp, D, block_size)
     di = torch.arange(D, dtype=torch.int32, device=lp.device)[:, None, None]
-    kmin = torch.amin(cost * 256 + (D - 1 - di), dim=0)
-    best = (D - 1) - (kmin & 255)
-    best_cost = kmin >> 8
+    # the reference's key (ops/bm.py): ties to the largest d, any D
+    kmin = torch.amin(cost * D + (D - 1 - di), dim=0)
+    best = (D - 1) - kmin % D
+    best_cost = kmin // D
     b = best.long()[None]
     c_m1 = torch.where(best > 0,
                        torch.gather(cost, 0, (b - 1).clamp(min=0))[0], 0)
@@ -96,11 +104,28 @@ def bm_cost_wta_plain(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
 
 
 def lane_k(D: int) -> int:
-    """Disparities a lane holds: ceil(D / 32) rounded up to 1, 2, 4 or 8."""
+    """Disparities a lane holds: ceil(D / 32) rounded up to 1, 2, 4 or 8,
+    and 12 above D = 256."""
+    if D > 256:
+        return 12
     k = 1
     while 32 * k < D:
         k *= 2
     return k
+
+
+def key_bits(D: int) -> int:
+    """Bits of the d field of the kernel's packed key cost << bits | (D - 1 - d)."""
+    return 8 if D <= 256 else 9
+
+
+def check_args(D: int, bs: int, what: str) -> None:
+    """Raise unless the kernel takes D and an odd block size bs: 1 <= D <=
+    MAX_D, and every packed key (cost <= bs^2 * 255) fits in int32."""
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"{what}: D={D} is outside the kernel's 1..{MAX_D}")
+    if bs % 2 == 0 or bs < 1 or bs * bs * 255 << key_bits(D) >= 2**31:
+        raise ValueError(f"{what}: unsupported block_size={bs} at D={D}")
 
 
 def bm_smem(tx: int, D: int, bs: int) -> int:
@@ -132,9 +157,9 @@ def bm_plan(H: int, W: int, D: int, bs: int, smem_per_sm: int) -> BmPlan:
     (ty + bs - 1) / ty at or below 1.5 where the frame is that large, with
     stripes of at least MIN_ROWS rows; the tile narrows until two blocks
     fit in an SM's shared memory (one where none narrower does). A block
-    may take all of its SM's but SMEM_RESERVED. Raises if no block fits."""
-    if not (1 <= D <= 256) or bs % 2 == 0 or bs < 1:
-        raise ValueError(f"bm_plan: unsupported D={D}, block_size={bs}")
+    may take all of its SM's but SMEM_RESERVED. Raises if no block fits,
+    or if the kernel does not take D or bs (`check_args`)."""
+    check_args(D, bs, "bm_plan")
 
     def resident(tx):
         smem = bm_smem(tx, D, bs)
@@ -144,7 +169,7 @@ def bm_plan(H: int, W: int, D: int, bs: int, smem_per_sm: int) -> BmPlan:
 
     pw = PIXELS_PER_WARP
     warps = -(-5 * (bs - 1) // pw)  # tx >= 5 * (bs - 1)
-    warps = min(max(warps, MIN_COLUMNS[D > 128] // pw), MAX_WARPS,
+    warps = min(max(warps, MIN_COLUMNS[(D > 128) + (D > 256)] // pw), MAX_WARPS,
                 max(-(-W // pw), 1))
     while warps > 1 and resident(pw * warps) < 2:
         warps -= 1
@@ -152,7 +177,7 @@ def bm_plan(H: int, W: int, D: int, bs: int, smem_per_sm: int) -> BmPlan:
     if resident(tx) < 1:
         raise ValueError(f"bm_plan: no block of D={D}, block_size={bs} fits "
                          f"in {smem_per_sm} bytes of shared memory")
-    ty = min(max(2 * (bs - 1), MIN_ROWS), max(H, 1))
+    ty = min(max(2 * (bs - 1), MIN_ROWS[D > 256]), max(H, 1))
     return BmPlan(tx, ty, warps, bm_smem(tx, D, bs), resident(tx))
 
 
@@ -176,8 +201,7 @@ def bm_cost_wta(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
         raise ValueError(f"bm_cost_wta: unsupported device {lp.device}")
     H, W = lp.shape
     D, bs = int(num_disp), int(block_size)
-    if not (1 <= D <= 256) or bs % 2 == 0 or bs * bs * 255 * 256 >= 2**31:
-        raise ValueError(f"bm_cost_wta: unsupported D={D}, block_size={bs}")
+    check_args(D, bs, "bm_cost_wta")
     _build.require(lp, "lp", torch.uint8)
     _build.require(rp, "rp", torch.uint8, (H, W))
     outs = [torch.empty((H, W), dtype=torch.int32, device=lp.device)

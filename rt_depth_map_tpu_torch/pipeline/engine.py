@@ -39,9 +39,9 @@ from rt_depth_map_tpu_torch.config import EngineConfig
 from rt_depth_map_tpu_torch.convert import engine_state_from_numpy
 from rt_depth_map_tpu_torch.ops.bm import stereo_bm
 from rt_depth_map_tpu_torch.ops.color import in_range, rgb_to_gray, rgb_to_hsv
+from rt_depth_map_tpu_torch.ops.cuda.remap import rectify_pair, rectify_pair_plain
 from rt_depth_map_tpu_torch.ops.detect import detect_objects, matching_region
 from rt_depth_map_tpu_torch.ops.morphology import morph_open_close
-from rt_depth_map_tpu_torch.ops.remap import remap_bilinear
 from rt_depth_map_tpu_torch.ops.reproject import (
     calc_depth,
     disparity_fixed_to_float,
@@ -183,13 +183,10 @@ class Engine:
         lg = rgb_to_gray(left_rgb)
         rg = rgb_to_gray(right_rgb)
         mark("gray x2")
-        # the left gray and RGB planes share a map: one 4-channel remap
-        lrect4 = remap_bilinear(torch.cat([lg[..., None], left_rgb], dim=-1),
-                                st.left, plain=plain)
-        lrect = lrect4[..., 0].contiguous()
-        rgbr = lrect4[..., 1:]
-        rrect = remap_bilinear(rg, st.right, plain=plain)
-        mark("remap K1 (left 4-ch + right 1-ch)")
+        # both views' planes (left gray and RGB, right gray) in one launch
+        rectify = rectify_pair_plain if plain else rectify_pair
+        lrect, rgbr, rrect = rectify(lg, left_rgb, rg, st.left, st.right)
+        mark("remap K1 (both views)")
 
         hsv = rgb_to_hsv(rgbr)
         mask = in_range(hsv, st.hsv_low, st.hsv_high)

@@ -21,6 +21,7 @@ from rt_depth_map_tpu.ops.prefilter import xsobel_prefilter as jprefilter
 from rt_depth_map_tpu_torch.config import MatcherConfig
 from rt_depth_map_tpu_torch.ops import bm as tbm
 from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
+    MAX_D,
     MAX_WARPS,
     PIXELS_PER_WARP,
     SMEM_RESERVED,
@@ -74,12 +75,11 @@ def test_bm_cost_wta_plain_matches_pallas_in_valid_region():
         np.testing.assert_array_equal(g[keep], r[keep], err_msg=name)
 
 
-@pytest.mark.parametrize("D,bs", [(16, 13), (24, 5), (8, 9)])
-def test_bm_cost_wta_plain_matches_xla_volume_everywhere(D, bs):
-    """The port's contract holds on every pixel: the XLA cost volume of
-    ops/bm.py and its winner, ties to the largest d."""
-    H, W = 20, 72
-    lp, rp = _prefiltered(5, H, W, 4)
+def _check_plain_against_xla_volume(D, bs, H, W, shift):
+    """bm_cost_wta_plain's five outputs against the XLA cost volume of
+    ops/bm.py and its winner (the reference's key cost * D + (D - 1 - d),
+    ties to the largest d), on every pixel; returns the winners."""
+    lp, rp = _prefiltered(5, H, W, shift)
     cost = np.asarray(jbm._cost_volume(jnp.asarray(lp), jnp.asarray(rp), D, 0, bs))
     di = np.arange(D)[:, None, None]
     kmin = (cost * D + (D - 1 - di)).min(0)
@@ -92,6 +92,24 @@ def test_bm_cost_wta_plain_matches_xla_volume_everywhere(D, bs):
     np.testing.assert_array_equal(got[3], np.where(best < D - 1, at(best + 1), 0))
     outside = np.abs(di - best[None]) > 1
     np.testing.assert_array_equal(got[4], np.where(outside, cost, 2**28).min(0))
+    return best
+
+
+@pytest.mark.parametrize("D,bs", [(16, 13), (24, 5), (8, 9)])
+def test_bm_cost_wta_plain_matches_xla_volume_everywhere(D, bs):
+    """The port's contract holds on every pixel: the XLA cost volume of
+    ops/bm.py and its winner, ties to the largest d."""
+    _check_plain_against_xla_volume(D, bs, 20, 72, 4)
+
+
+@pytest.mark.parametrize("D,bs", [(288, 9), (320, 5)])
+def test_bm_cost_wta_plain_matches_xla_above_256(D, bs):
+    """Above D = 256 the d field of a key packed into 8 bits would keep every
+    winner at or above D - 256: a 20 px shift puts the true ones below it."""
+    best = _check_plain_against_xla_volume(D, bs, 20, 420, 20)
+    w2 = bs // 2
+    inner = best[w2:-w2, D - 1 + w2: -w2]
+    assert (inner == 20).mean() > 0.5
 
 
 def _lr_inputs(seed, H, W, D):
@@ -164,6 +182,24 @@ def test_stereo_bm_matches_jax(roi, p):
     assert (ref != -16).any()  # the case keeps some valid matches
 
 
+@pytest.mark.parametrize("D", [288, 320])
+def test_stereo_bm_matches_jax_above_256(D):
+    """D above 256 (the default BM matcher on a 1920-wide camera runs at
+    D = 288) with true disparities below D - 256, bit-exact against the XLA
+    path."""
+    H, W = 32, 420
+    left, right = stereo_pair(23, H, W, 20)
+    cfg = MatcherConfig(kind="bm", num_disparities=D, block_size=9,
+                        speckle_window_size=0)
+    ref = np.asarray(jax.jit(jbm.stereo_bm, static_argnums=2)(
+        jnp.asarray(left), jnp.asarray(right), jax_config(cfg, backend="xla")))
+    got = tbm.stereo_bm(t(left), t(right), cfg)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    valid = ref != -16
+    assert valid.any()
+    assert (ref[valid] < (D - 256) * 16).any()
+
+
 @pytest.mark.parametrize("H,W,D,bs", [(64, 160, 32, 9), (48, 200, 64, 13)])
 def test_stereo_bm_matches_numpy_golden(H, W, D, bs):
     """A JAX-free reference: the numpy golden that pins cv2.StereoBM."""
@@ -192,12 +228,14 @@ def test_stereo_bm_refuses_speckle_and_min_disparity():
 
 
 @pytest.mark.parametrize("bs", [5, 13, 21])
-@pytest.mark.parametrize("D", [1, 64, 100, 128, 192, 256])
+@pytest.mark.parametrize("D", [1, 64, 100, 128, 192, 256, 288, 320, 384])
 def test_bm_plan(D, bs):
     """K8's plan: whole warps, a block that fits with at least two resident
-    on an SM, the halo and priming overheads bounded on full frames, and
-    narrow frames served by narrower tiles. (The kernel itself against its
-    plain version: tests/test_torch_bm_cuda.py, on the card.)"""
+    on an SM, the halo and priming overheads bounded on full frames (above
+    D = 256 the halo bound yields where a wider tile leaves fewer than two
+    blocks an SM), and narrow frames served by narrower tiles. (The kernel
+    itself against its plain version: tests/test_torch_bm_cuda.py, on the
+    card.)"""
     for H, W in ((720, 1280), (1080, 1920), (97, 301), (50, 64), (5, 200)):
         plan = bm_plan(H, W, D, bs, H100_SMEM_PER_SM)
         assert plan.tx == PIXELS_PER_WARP * plan.warps and 1 <= plan.warps <= MAX_WARPS
@@ -206,7 +244,11 @@ def test_bm_plan(D, bs):
         assert plan.resident * (plan.smem + SMEM_RESERVED) <= H100_SMEM_PER_SM
         assert 1 <= plan.ty <= H
         if W >= 1280:
-            assert (plan.tx + bs - 1) / plan.tx <= 1.2
+            halo_ok = (plan.tx + bs - 1) / plan.tx <= 1.2
+            if D > 256:
+                wider = bm_smem(plan.tx + PIXELS_PER_WARP, D, bs) + SMEM_RESERVED
+                halo_ok = halo_ok or 2 * wider > H100_SMEM_PER_SM
+            assert halo_ok
             assert (plan.ty + bs - 1) / plan.ty <= 1.5
             # enough blocks to spread over the H100's 132 SMs
             assert -(-W // plan.tx) * -(-H // plan.ty) >= 132
@@ -216,6 +258,12 @@ def test_bm_plan(D, bs):
     # the widest window the wrapper takes, on an SM of half the H100's
     with pytest.raises(ValueError):
         bm_plan(720, 1280, 256, 181, H100_SMEM_PER_SM // 2)
-    for bad_d, bad_bs in ((0, bs), (257, bs), (D, bs + 1)):
+    for bad_d, bad_bs in ((0, bs), (MAX_D + 1, bs), (D, bs + 1)):
         with pytest.raises(ValueError):
             bm_plan(720, 1280, bad_d, bad_bs, H100_SMEM_PER_SM)
+    # above D = 256 the key's d field takes 9 bits: bs^2 * 255 * 512 < 2^31
+    # holds up to bs = 127
+    if D > 256:
+        assert bm_plan(720, 1280, D, 127, H100_SMEM_PER_SM).resident >= 1
+        with pytest.raises(ValueError, match="block_size"):
+            bm_plan(720, 1280, D, 129, H100_SMEM_PER_SM)

@@ -17,15 +17,17 @@ from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
 from torch_helpers import cuda_or_skip, stereo_pair, t
 
 #: (H, W, D, bs, inputs): full-range random bytes over every D and block
-#: size on a ragged frame; prefiltered stereo pairs; W < D; H < bs; and a
-#: view that starts one row into its tensor (rows not on 16 bytes)
+#: size on a ragged frame (D = 288 and 384: 12 d a lane, a 9-bit key);
+#: prefiltered stereo pairs; W < D; H < bs; and a view that starts one row
+#: into its tensor (rows not on 16 bytes)
 CASES = (
-    [(97, 301, D, bs, "random") for D in (1, 16, 100, 128, 192, 256)
+    [(97, 301, D, bs, "random") for D in (1, 16, 100, 128, 192, 256, 288, 384)
      for bs in (1, 5, 13, 21)]
     + [(40, 200, 32, 13, "prefiltered"), (120, 400, 128, 13, "prefiltered"),
        (50, 64, 100, 13, "random"), (50, 64, 100, 5, "prefiltered"),
        (5, 200, 64, 13, "random"), (3, 90, 16, 21, "random"),
-       (1, 33, 8, 5, "random"), (97, 301, 128, 13, "view")]
+       (1, 33, 8, 5, "random"), (97, 301, 128, 13, "view"),
+       (60, 500, 288, 13, "prefiltered"), (97, 301, 384, 13, "view")]
 )
 
 

@@ -55,21 +55,22 @@ def jax_config(cfg: EngineConfig) -> jconfig.EngineConfig:
     return jconfig.EngineConfig(**fields)
 
 
-def _rectification():
+def _rectification(w=W):
     """Vertical stretch past the frame border plus a fractional x shift
     (tests/test_engine_batch.py), and a ROI crop."""
-    oy, ox = np.mgrid[0:H, 0:W].astype(np.float32)
+    oy, ox = np.mgrid[0:H, 0:w].astype(np.float32)
     grid = np.stack([ox + 0.3, oy * (H + 8.0) / H - 4.0], axis=-1).astype(np.float32)
-    Q = SyntheticStereoSource(W, H).q_matrix()
+    Q = SyntheticStereoSource(w, H).q_matrix()
     return RectificationResult(map_left=grid, map_right=grid.copy(), Q=Q,
-                               roi=(4, 2, W - 8, H - 6), image_size=(W, H),
+                               roi=(4, 2, w - 8, H - 6), image_size=(w, H),
                                rectify=None)
 
 
-def _source(cls=SyntheticStereoSource):
-    objects = [SyntheticObject(x=40, y=20, w=100, h=50, z_units=60.0, vx=1.0),
-               SyntheticObject(x=160, y=30, w=70, h=40, z_units=80.0, vy=0.5)]
-    src = cls(W, H, seed=5, objects=objects)
+def _source(cls=SyntheticStereoSource, w=W, x0=0):
+    """Two objects from column x0 on."""
+    objects = [SyntheticObject(x=x0 + 40, y=20, w=100, h=50, z_units=60.0, vx=1.0),
+               SyntheticObject(x=x0 + 160, y=30, w=70, h=40, z_units=80.0, vy=0.5)]
+    src = cls(w, H, seed=5, objects=objects)
     src.rectified = False  # the engines apply the rectification maps
     return src
 
@@ -150,6 +151,28 @@ def test_engine_sgm_frames_match_jax():
 def test_engine_sgm5_frames_match_jax():
     """cv2 MODE_SGBM (5 paths) through the same frame program."""
     _check_sgm_engine(5)
+
+
+def test_engine_bm_scaled_above_256_matches_jax():
+    """The default BM matcher on a camera 1.5 times as wide as its
+    configuration: the engine scales D = 192 to 288 (a 1920-wide camera
+    under a 1280x720 configuration does the same). The objects' disparities
+    (35 and 26 px at this width) lie below and above D - 256 = 32."""
+    w = 480
+    cfg = EngineConfig(width=320, height=H, number_of_disparities=192,
+                       matcher=MatcherConfig(kind="bm", speckle_window_size=0))
+    rect = _rectification(w)
+    jeng = JEngine(jax_config(cfg), rectification=rect,
+                   source=_source(JSyntheticStereoSource, w, 200))
+    teng = Engine(cfg, rectification=rect, source=_source(w=w, x0=200),
+                  device="cpu")
+    assert teng.num_disparities == jeng.num_disparities == 288
+    left, right, _, _ = _source(w=w, x0=200).render(0)
+    ref = jeng.process_pair(left, right)
+    got = teng.process_pair(left, right)
+    _assert_same(ref, got, "bm D=288 frame")
+    valid = got.disparity != -16
+    assert valid.any() and (got.disparity[valid] < 32 * 16).any()
 
 
 def test_engine_runs_plain_versions_on_cpu(engines):

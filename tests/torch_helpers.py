@@ -59,3 +59,29 @@ def stereo_pair(seed, H, W, shift):
     base = np.apply_along_axis(lambda c: np.convolve(c, k, "same"), 0, base)
     base = base.astype(np.uint8)
     return base[:, :W].copy(), base[:, shift: shift + W].copy()
+
+
+def remap_grid(case, Ho=40, Wo=56, H=40, W=56):
+    """(Ho, Wo, 2) float32 [x, y] map over an H x W source for the K1 tests:
+    identity, shear (a fractional shift and a vertical stretch past the
+    border), random (anywhere, including fully outside the image), ties
+    (exact 1/64-px offsets: round half to even) or rotation."""
+    oy, ox = np.mgrid[0:Ho, 0:Wo].astype(np.float32)
+    rng = np.random.default_rng(3)
+    if case == "identity":
+        mx, my = ox, oy
+    elif case == "shear":
+        mx = ox + 0.3 + 0.05 * oy
+        my = oy * (H + 8.0) / H - 4.0
+    elif case == "random":
+        mx = rng.uniform(-4, W + 4, (Ho, Wo))
+        my = rng.uniform(-4, H + 4, (Ho, Wo))
+    elif case == "ties":
+        mx = ox + (2 * rng.integers(0, 32, (Ho, Wo)) + 1) / 64.0
+        my = oy - (2 * rng.integers(0, 32, (Ho, Wo)) + 1) / 64.0
+    elif case == "rotation":
+        a = 0.05
+        cx, cy = Wo / 2, Ho / 2
+        mx = np.cos(a) * (ox - cx) - np.sin(a) * (oy - cy) + cx
+        my = np.sin(a) * (ox - cx) + np.cos(a) * (oy - cy) + cy
+    return np.stack([mx, my], axis=-1).astype(np.float32)

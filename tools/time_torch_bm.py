@@ -28,10 +28,10 @@ rectification, prefiltered with pre_filter_cap 31, block size 13:
 It prints one JSON line a process: the card's name and power limit, the
 checkout, and the numbers.
 
-`--sweep` times the three K8 calls of one checkout at launch plans other
-than `bm_plan`'s (warps a block, rows a block), calling the library's entry
-point directly, each plan's outputs checked equal to the wrapper's; one
-JSON line.
+`--sweep` times the three K8 calls of one checkout, and 1920x1080 at
+D=288 and 384, at launch plans other than `bm_plan`'s (warps a block, rows a
+block), calling the library's entry point directly, each plan's outputs
+checked equal to the wrapper's; one JSON line.
 
 `--ablate` builds copies of the checkout's `csrc/bm_kernel.cu` into
 `build/sweep/bm_kernel/`, each with one part taken out (the output stores, the
@@ -53,8 +53,12 @@ BS = 13
 #: (W, H, D, name) of the timed K8 calls
 CALLS = ((1280, 720, 128, "720p D=128"), (1280, 720, 192, "720p D=192"),
          (1920, 1080, 256, "1080p D=256"))
+#: --sweep's calls: also 1080p at D=288 and 384 (12 d a lane), which a
+#: checkout before D > 256 was taken refuses
+SWEEP_CALLS = CALLS + ((1920, 1080, 288, "1080p D=288"), (1920, 1080, 384, "1080p D=384"))
 #: (warps, rows) a block tried by --sweep beside the plan's own
-SWEEP = ((2, 24), (2, 40), (2, 48), (4, 32), (4, 48), (1, 32))
+SWEEP = ((2, 24), (2, 40), (2, 48), (2, 56), (2, 64), (4, 32), (4, 48), (1, 32),
+         (1, 48), (3, 24), (3, 48))
 
 
 def _setup(root: str):
@@ -133,7 +137,7 @@ def _sweep(root: str) -> dict:
 
     lib, fn = _fn()
     out = {"card": cs._card(), "root": root, "plans": {}, "ms_b2b": {}}
-    for w, h, d, what in CALLS:
+    for w, h, d, what in SWEEP_CALLS:
         _, _, lp, rp = frames(w, h)
         key = f"K8 {what}"
         ref = bm_cost_wta(lp, rp, d, BS)

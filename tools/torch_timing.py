@@ -6,9 +6,11 @@ card's drift over the call); the process imports the package of its root
 only and builds that checkout's kernels into its own `build/`. It times a
 call as 20 launches issued back to back between two CUDA events (the
 host's work before each launch overlaps the previous kernel, so that figure
-is device time alone), and can build copies of one kernel source with parts
-taken out (`build_ablations`), whose outputs are wrong by design and only
-timed.
+is device time alone where the kernel outlasts the host's work for a call,
+and the host's work where it does not: a wrapper's is some tens of us),
+reads a call's device activities from torch.profiler (`device_profile`),
+and can build copies of one kernel source with parts taken out
+(`build_ablations`), whose outputs are wrong by design and only timed.
 """
 
 from __future__ import annotations
@@ -46,6 +48,25 @@ def b2b_ms(torch, fn, n=20) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / n
+
+
+def device_profile(torch, fn, frames=5):
+    """(device ms, device operations) a call of fn, from torch.profiler over
+    `frames` calls after one to warm up: the device activities (kernels,
+    copies, fills) and the sum of their self time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", None)
+                 or getattr(e, "self_cuda_time_total", 0.0) for e in events)
+    return dev_us / 1e3 / frames, sum(e.count for e in events) / frames
 
 
 def build_ablations(stem: str, ablations, entry: str, argtypes) -> list:
