@@ -46,8 +46,17 @@ the script exits non-zero:
      columns, capped and uncapped); at 3840x2160 D=128 the frame program,
      detect_objects and the speckle filter against their plain versions,
      and both 8-path routes on one volume (W1 = 3712);
-     K3, K6 and K7 at all three (K3 also with an int32 volume, bs 11, at
-     the flagship and odd shapes); K4 must make one CUDA launch a call
+     K3 and K7 at all three (K3 also with an int32 volume, bs 11, at the
+     flagship and odd shapes; K7 as the speckle filter's `speckle_decision`
+     (count + decision), `label_histogram_banded` and `label_histogram`),
+     `speckle_apply` there too, and K6 at the flagship and the stretch
+     point (its SGBM entry `lr_resolve_sgbm` and the general `lr_resolve`
+     on the planes the plain check builds); K7's three entries also on a
+     constant-disparity frame (one root), a checkerboard of one-pixel
+     components (every pixel a root) and the cap-bound snake, each with the
+     whole speckle filter against its plain version; K6's BM entry
+     `lr_resolve_bm` at 720p D=128 and 1920x1080 D=288, and the general
+     entry on the BM planes; K4 must make one CUDA launch a call
      (the library's own count); the bidir and chained 8-path routes timed
      on the flagship and stretch volumes, which must give the same winners;
      a snake through the speckle path where the 16-sweep cap binds; K8 at
@@ -57,8 +66,11 @@ the script exits non-zero:
      both of its routes);
   4. engine, SGM: Engine.run on a synthetic 1280x720 stream through a
      non-identity rectification with the launch counts set to 0 just
-     before; every kernel of the path must have launched (K12 twice a
-     frame, K4 and K5 once), and every frame's
+     before and every plain version made to raise on a CUDA tensor; every
+     kernel of the path must have launched (K12 twice a frame, K4 and K5
+     once; on every engine phase the LR check's entry, `speckle_decision`
+     and `speckle_apply` once a frame, K6's and K7's general entries
+     never), and every frame's
      disparity, boxes, mask and count must equal the plain frame program;
      then the frame program's median time and the pipelined frame rate;
   5. stage profile of the SGM frame program (a CUDA event at each of the
@@ -85,7 +97,10 @@ time), the nvidia-smi line, and {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
+import inspect
 import json
 import statistics
 import subprocess
@@ -119,11 +134,17 @@ PEAK_OPS = None
 #: the kernels of each frame program: the SGM one (bidir route), the BM
 #: one, 8-path SGM on the chained route, and cv2 MODE_SGBM (5 paths)
 _SGM_COMMON = ("rectify_pair", "seg_min_propagate", "sgm_cost_volume",
-               "lr_resolve", "label_histogram_banded")
+               "lr_resolve_sgbm", "speckle_decision", "speckle_apply")
 BIDIR = ("vol_transpose", "sgm_horiz", "sgm_vert_wta")
 SGM_PATH = _SGM_COMMON + BIDIR
-BM_PATH = ("rectify_pair", "seg_min_propagate", "bm_cost_wta", "lr_resolve",
-           "label_histogram_banded")
+BM_PATH = ("rectify_pair", "seg_min_propagate", "bm_cost_wta", "lr_resolve_bm",
+           "speckle_decision", "speckle_apply")
+#: K6's and K7's general entry points, checked in phase 3: no frame program
+#: launches them (each stage runs its own entry)
+GENERAL = ("lr_resolve", "label_histogram_banded", "label_histogram")
+#: launches a frame of the LR check's and the speckle filter's entries on
+#: every path
+LR_SPECKLE_PER_FRAME = {"speckle_decision": 1, "speckle_apply": 1}
 CHAINED_PATH = _SGM_COMMON + ("sgm_horiz_pass", "sgm_vert_pass", "sgm_final_wta")
 SGBM5_PATH = _SGM_COMMON + ("sgm_horiz_pass", "sgm_final_wta")
 
@@ -246,6 +267,38 @@ def _require_launched(launches: dict, names, what: str, absent=()) -> None:
                              f"(launches {launches})")
 
 
+@contextlib.contextmanager
+def _no_plain_on_card():
+    """While inside, every `*_plain` function of the port's modules raises
+    when it is handed a CUDA tensor: a frame program on the card must
+    launch the kernels, never their plain versions."""
+    import torch
+
+    def guard(name, fn):
+        @functools.wraps(fn)
+        def guarded(*args, **kwargs):
+            for a in (*args, *kwargs.values()):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda
+                       for t in (a if isinstance(a, (tuple, list)) else (a,))):
+                    raise AssertionError(f"{name} got a CUDA tensor on the frame path")
+            return fn(*args, **kwargs)
+        return guarded
+
+    patched = []
+    for mod_name, mod in list(sys.modules.items()):
+        if mod is None or not mod_name.startswith("rt_depth_map_tpu_torch"):
+            continue
+        for attr, val in list(vars(mod).items()):
+            if attr.endswith("_plain") and inspect.isfunction(val):
+                patched.append((mod, attr, val))
+                setattr(mod, attr, guard(f"{mod_name}.{attr}", val))
+    try:
+        yield len(patched)
+    finally:
+        for mod, attr, val in patched:
+            setattr(mod, attr, val)
+
+
 def _rectification(w, h):
     """Same warp for both eyes (rows stay aligned): a fractional x shift and
     a vertical stretch whose top and bottom rows sample outside the frame."""
@@ -319,9 +372,12 @@ def _snake(h, w, arms):
 
 def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
                   frames=ENGINE_FRAMES, absent=()):
-    """Engine.run with the counts set to 0 just before; every kernel of the
-    path launched, none of `absent`, and every frame equal to the plain
-    frame program. Returns the engine and the launch counts of the run."""
+    """Engine.run with the counts set to 0 just before and every plain
+    version guarded against CUDA tensors (`_no_plain_on_card`); every kernel
+    of the path launched, none of `absent` or of K6's and K7's general
+    entries, the LR check's and the speckle filter's entries once a frame,
+    and every frame equal to the plain frame program. Returns the engine and
+    the launch counts of the run."""
     import torch
 
     from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
@@ -331,14 +387,23 @@ def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
             f"{w}x{h} D={eng.num_disparities}")
     eng.warmup()
     results = {}
-    reset_launch_counts()
-    eng.run(frames=frames, on_frame=lambda i, r: results.__setitem__(i, r),
-            print_stats_on_sigint=False)
-    launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
-    print(f"{what}: {len(results)} frames, launches {launches}", flush=True)
+    with _no_plain_on_card() as guarded:
+        reset_launch_counts()
+        eng.run(frames=frames, on_frame=lambda i, r: results.__setitem__(i, r),
+                print_stats_on_sigint=False)
+        launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
+    print(f"{what}: {len(results)} frames, launches {launches}; no CUDA tensor "
+          f"reached any of {guarded} plain versions", flush=True)
     if len(results) != frames:
         raise AssertionError(f"{what} returned {len(results)} frames")
-    _require_launched(launches, path, what, absent)
+    _require_launched(launches, path, what, absent + GENERAL)
+    lr = "lr_resolve_bm" if "bm_cost_wta" in path else "lr_resolve_sgbm"
+    per_frame = {lr: 1, **LR_SPECKLE_PER_FRAME}
+    got = {k: launches[k] / frames for k in per_frame}
+    if got != per_frame:
+        raise AssertionError(f"{what}: launches a frame {got}, expected {per_frame}")
+    print(f"{what}: launches a frame of the LR check and speckle entries {got}",
+          flush=True)
 
     ref_src = _source(w, h)
     for i in sorted(results):
@@ -446,6 +511,7 @@ def main() -> int:
     from rt_depth_map_tpu_torch.ops.cc import (
         CC_MAX_ROUNDS,
         component_small,
+        component_small_field,
         connected_components_bbox,
         connected_components_scan,
         value_edges,
@@ -458,8 +524,22 @@ def main() -> int:
         label_histogram,
         label_histogram_banded,
         label_histogram_plain,
+        speckle_apply,
+        speckle_apply_plain,
+        speckle_decision,
+        speckle_decision_plain,
     )
-    from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
+    from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (
+        lr_bm_kwargs,
+        lr_key_planes_bm,
+        lr_key_planes_sgbm,
+        lr_resolve,
+        lr_resolve_bm,
+        lr_resolve_bm_plain,
+        lr_resolve_plain,
+        lr_resolve_sgbm,
+        lr_resolve_sgbm_plain,
+    )
     from rt_depth_map_tpu_torch.ops.cuda.remap import (
         rectify_pair,
         rectify_pair_plain,
@@ -801,6 +881,32 @@ def main() -> int:
                   bound=(_nbytes(C, part), _nbytes(*outs), _lanes(4 * 8 * n, es)),
                   plain_reps=1, primary=False)
 
+    def count_checks(labels, act, max_size, what, timed=True):
+        """K7's speckle entry (count + decision), then K7 and K10 (the
+        count), against their plain versions and torch.bincount. Bound:
+        labels (4 B) and the active bytes (1 B) read once, the int32
+        field or counts (4 B) written once; ~8 int32 operations a pixel.
+        Returns the counts."""
+        n = labels.numel()
+        lib = (lambda lab=labels, a=act: torch.bincount(lab[a], minlength=n))
+        fld = speckle_decision(labels, act, max_size)
+        check(speckle_decision, lambda: speckle_decision(labels, act, max_size),
+              lambda: speckle_decision_plain(labels, act, max_size), what,
+              bound=(_nbytes(labels, act), _nbytes(fld), 8 * n), timed=timed,
+              primary=timed)
+        cnt = label_histogram(labels, act)
+        hb = (_nbytes(labels, act), _nbytes(cnt), 8 * n)
+        check(label_histogram_banded,
+              lambda: label_histogram_banded(labels, act, max_size),
+              lambda: label_histogram_plain(labels, act), what, bound=hb,
+              library_fn=lib, timed=timed, primary=timed)
+        check(label_histogram, lambda: label_histogram(labels, act),
+              lambda: label_histogram_plain(labels, act), what, bound=hb,
+              library_fn=lib, timed=timed, primary=timed)
+        if not torch.equal(lib().reshape(labels.shape).to(torch.int32), cnt):
+            raise AssertionError(f"{what}: label_histogram != torch.bincount")
+        return cnt
+
     flagship = (H, W, D)
     for (h, w, d) in (flagship, STRETCH, ODD):
         if (h, w, d) == STRETCH:
@@ -864,15 +970,26 @@ def main() -> int:
         disp = torch.full((h, w), -16, dtype=torch.int16, device=dev)
         disp[:, d:] = torch.where(uniq != 0, -16, dval).to(torch.int16)
         if (h, w, d) != ODD:
-            # the SGBM LR check's K6 call, on the planes lr_check_sgbm builds
-            d_intW, keyW, rms, kw = sg.lr_key_planes_sgbm(disp, best, minS, d,
-                                                          w - d, d)
+            # K6's general entry on the int32 planes the plain check builds,
+            # then its SGBM entry, the frame programs' call: the matcher's
+            # outputs in (the int16 disparity, best and minS, each read
+            # once), the checked int16 disparity out; ~24 int32 operations
+            # a pixel
+            d_intW, keyW, rms, kw = lr_key_planes_sgbm(disp, best, minS, d, w - d, d)
             outs6 = lr_resolve(d_intW, keyW, rms, **kw)
             check(lr_resolve, lambda: lr_resolve(d_intW, keyW, rms, **kw),
                   lambda: lr_resolve_plain(d_intW, keyW, rms, **kw),
-                  f"SGBM LR check {what}",
+                  f"SGBM planes {what}",
                   bound=(_nbytes(d_intW, keyW, *rms), _nbytes(*outs6), 6 * h * w))
-            disp = sg.lr_check_sgbm(disp, best, minS, d, w - d, d, m.disp12_max_diff)
+            del d_intW, keyW, rms, outs6
+            md = m.disp12_max_diff
+            checked = lr_resolve_sgbm(disp, best, minS, d, w - d, d, md)
+            check(lr_resolve_sgbm, lambda: lr_resolve_sgbm(disp, best, minS, d, w - d, d, md),
+                  lambda: lr_resolve_sgbm_plain(disp, best, minS, d, w - d, d, md), what,
+                  bound=(_nbytes(disp, best, minS), _nbytes(checked), 24 * h * w))
+            if torch.equal(checked, disp):
+                raise AssertionError(f"SGBM LR check {what}: no pixel invalidated")
+            disp = checked
         act = disp != -16
         # K2's two speckle calls (1 field, 4-connected value edges): the
         # labels, then each root's small/big decision broadcast
@@ -895,18 +1012,14 @@ def main() -> int:
                                       plain=True),
               f"{what} speckle decision broadcast ({sweeps} sweeps, "
               f"{int(small.sum())} small pixels)", timed=False)
+        count_checks(labels, act, m.speckle_window_size, what + " speckle labels")
+        # the filter's last step on the broadcast decisions
+        fld = component_small_field(labels, act, edges, m.speckle_window_size)
+        applied = speckle_apply(disp, fld, -16)
+        check(speckle_apply, lambda: speckle_apply(disp, fld, -16),
+              lambda: speckle_apply_plain(disp, fld, -16), what,
+              bound=(_nbytes(disp, fld), _nbytes(applied), 4 * h * w))
         cnt = label_histogram(labels, act)
-        hb = (_nbytes(labels, act), _nbytes(cnt), h * w)
-        lib = (lambda lab=labels, a=act: torch.bincount(lab[a], minlength=lab.numel()))
-        check(label_histogram_banded,
-              lambda: label_histogram_banded(labels, act, m.speckle_window_size),
-              lambda: label_histogram_plain(labels, act), what + " speckle labels",
-              bound=hb, library_fn=lib)
-        check(label_histogram, lambda: label_histogram(labels, act),
-              lambda: label_histogram_plain(labels, act), what + " speckle labels",
-              bound=hb, library_fn=lib)
-        if not torch.equal(lib().reshape(h, w).to(torch.int32), cnt):
-            raise AssertionError("label_histogram != torch.bincount")
         print(f"phase 3 SGM {what}: {float(act.float().mean()):.3f} of pixels "
               f"valid after the LR check, {int((cnt > 0).sum())} components",
               flush=True)
@@ -1090,6 +1203,29 @@ def main() -> int:
               f"{int((got != -16).sum())} of {int(sact.sum())} pixels kept",
               flush=True)
 
+    # K7's counts where they are hardest, at 1280x720: a constant-disparity
+    # frame (one component: every warp's run lands on one root), a
+    # checkerboard of one-pixel components (every pixel a root: the tile's
+    # table overflows) and the cap-bound snake (the capped K2's labels);
+    # then the whole speckle filter on each against its plain version
+    checker = torch.from_numpy(np.indices((H, W)).sum(0) % 2 == 0).to(dev)
+    for what, adisp in (
+            ("constant disparity", torch.full((H, W), 48, dtype=torch.int16, device=dev)),
+            ("checkerboard of one-pixel components",
+             torch.where(checker, 16, 16 + 32 * m.speckle_range).to(torch.int16)),
+            ("cap-bound snake", sdisp)):
+        aact = adisp != -16
+        alab = connected_components_scan(adisp, aact, m.speckle_range * 16)
+        cnt = count_checks(alab, aact, m.speckle_window_size, f"{W}x{H} {what}")
+        got = filter_speckles(adisp, -16, m.speckle_window_size, m.speckle_range * 16)
+        if not torch.equal(got, filter_speckles(adisp, -16, m.speckle_window_size,
+                                                m.speckle_range * 16, plain=True)):
+            raise AssertionError(f"speckle filter, {what}: kernels != plain")
+        print(f"phase 3 counts {what}: {int((cnt > 0).sum())} roots; the speckle "
+              f"filter equals its plain version ({int((got != -16).sum())} of "
+              f"{int(aact.sum())} pixels kept)", flush=True)
+    del checker, adisp, aact, alab
+
     # K8 on the rectified, prefiltered frame; K6 on K8's output (BM point)
     bm_cfg = _config("bm", W, H).matcher
     lp = xsobel_prefilter(lrect, bm_cfg.pre_filter_cap)
@@ -1122,13 +1258,30 @@ def main() -> int:
               plain_reps=5, timed=timed)
     bdisp = bm_ops.stereo_bm(lrect, rrect, bm_cfg.replace(
         disp12_max_diff=-1, speckle_window_size=0), plain=True)
-    _, _, d_int, key = bm_ops.lr_key_planes(bdisp, bm_out[1])
-    kw = dict(n_w=BM_D + 1, r_lo=0, n_r=BM_D + 1, Dpow=bm_ops.LR_DPOW,
-              c0=-bm_ops.LR_OFF, invalid=-16)
+    _, _, d_int, key = lr_key_planes_bm(bdisp, bm_out[1])
+    kw = lr_bm_kwargs(BM_D)
     outs6 = lr_resolve(d_int, key, (d_int,), **kw)
     check(lr_resolve, lambda: lr_resolve(d_int, key, (d_int,), **kw),
-          lambda: lr_resolve_plain(d_int, key, (d_int,), **kw), "BM LR check",
+          lambda: lr_resolve_plain(d_int, key, (d_int,), **kw), "BM planes",
           bound=(_nbytes(d_int, key), _nbytes(*outs6), 6 * H * W))
+    # K6's BM entry, the frame programs' call, at 720p D=128 and on the
+    # 1920x1080 frame at D=288 (the default BM matcher there): the int16
+    # disparity and the winner's cost read once, the int16 result written
+    # once; ~16 int32 operations a pixel
+    md = bm_cfg.disp12_max_diff
+    bdisp288 = bm_ops.stereo_bm(slrect, srrect, bm_cfg.replace(
+        num_disparities=288, disp12_max_diff=-1, speckle_window_size=0))
+    for bd, cost, bdd, what in (
+            (bdisp, bm_out[1], BM_D, f"{W}x{H} D={BM_D}"),
+            (bdisp288, bm_cost_wta(slp, srp, 288, BM_BS)[1], 288,
+             f"{str_w}x{str_h} D=288")):
+        checked = lr_resolve_bm(bd, cost, bdd, md)
+        check(lr_resolve_bm, lambda bd=bd, c=cost, d=bdd: lr_resolve_bm(bd, c, d, md),
+              lambda bd=bd, c=cost, d=bdd: lr_resolve_bm_plain(bd, c, d, md), what,
+              bound=(_nbytes(bd, cost), _nbytes(checked), 16 * bd.numel()))
+        if torch.equal(checked, bd):
+            raise AssertionError(f"BM LR check {what}: no pixel invalidated")
+    del bdisp288
     print(f"phase 3 bm: {int((bdisp != -16).sum())} valid pixels before the LR "
           f"check", flush=True)
 

@@ -4,14 +4,14 @@ Port of `rt_depth_map_tpu/ops/bm.py` `stereo_bm` for min_disparity = 0 at
 strict shapes (GPU kernels need no pad-to-kernel-grid route). The cost and
 winner search run in K8 (`ops/cuda/bm_kernel.py`); the texture check,
 uniqueness test, subpixel step and the per-frame ROI mask are elementwise
-torch, with the ROI scalars left on the device; the left-right check resolves
-through K6 (`ops/cuda/lr_resolve.py`), and the speckle filter runs on K2 and
-K7 (`ops/speckle.py`).
+torch, with the ROI scalars left on the device; the left-right check is one launch of
+K6's BM entry (`ops/cuda/lr_resolve.py`), and the speckle filter runs on K2,
+K7 with its size decision, and one apply launch (`ops/speckle.py`).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -21,42 +21,20 @@ from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
     bm_cost_wta_plain,
     box_sum_2d,
 )
-from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve_bm, lr_resolve_bm_plain
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
 from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
 
 DISP_SHIFT = 4
 DISP_SCALE = 1 << DISP_SHIFT
-LR_DPOW = 1 << 13
-LR_OFF = 1 << 11
-
-
-def lr_key_planes(disp: torch.Tensor, cost: torch.Tensor):
-    """(d32, in_range, d_int, key) of the LR check: the x16 disparity as
-    int32, where its match x - round(d) lies in the image, the rounded
-    disparity, and the packed (cost, d) key (2^31-1 outside in_range)."""
-    W = disp.shape[1]
-    d32 = disp.to(torch.int32)
-    d_int = (d32 + DISP_SCALE // 2) >> DISP_SHIFT
-    x2 = torch.arange(W, dtype=torch.int32, device=disp.device) - d_int
-    in_range = (d32 != -DISP_SCALE) & (x2 >= 0) & (x2 < W)
-    key = torch.where(in_range, cost * LR_DPOW + (d32 + LR_OFF), 2**31 - 1)
-    return d32, in_range, d_int, key.to(torch.int32)
 
 
 def lr_check(disp: torch.Tensor, cost: torch.Tensor, num_disp: int,
              max_diff: int, plain: bool = False) -> torch.Tensor:
-    """cv::validateDisparity parity (ops/bm.py _lr_check, min_disparity 0):
-    pixels whose right-view match disagrees by more than max_diff become
-    invalid; projections outside the image are left untouched."""
-    invalid = -DISP_SCALE
-    d32, in_range, d_int, key = lr_key_planes(disp, cost)
-    fn = lr_resolve_plain if plain else lr_resolve
-    (rb,) = fn(d_int, key, (d_int,), n_w=num_disp + 1, r_lo=0,
-               n_r=num_disp + 1, Dpow=LR_DPOW, c0=-LR_OFF, invalid=invalid)
-    disp2_at = torch.where(in_range, rb, invalid)
-    bad = in_range & ((disp2_at - d32).abs() > max_diff * DISP_SCALE)
-    return torch.where(bad, torch.full_like(disp, invalid), disp)
+    """cv::validateDisparity parity (ops/bm.py _lr_check, min_disparity 0)
+    on K6's BM entry: `lr_resolve_bm_plain`."""
+    return (lr_resolve_bm_plain if plain else lr_resolve_bm)(disp, cost, num_disp,
+                                                             max_diff)
 
 
 def _check_config(cfg: MatcherConfig) -> None:
@@ -66,11 +44,14 @@ def _check_config(cfg: MatcherConfig) -> None:
 
 def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
               roi1: Optional[Tuple] = None, roi2: Optional[Tuple] = None,
-              plain: bool = False) -> torch.Tensor:
+              plain: bool = False,
+              mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
     """int16 x16 disparity of (H, W) uint8 rectified gray planes.
 
     roi1/roi2: optional (x, y, w, h), ints or 0-d device tensors; an empty
-    ROI means the full frame. plain=True runs the kernels' plain versions."""
+    ROI means the full frame. plain=True runs the kernels' plain versions;
+    mark(name), when given, is called after each stage."""
+    mark = mark or (lambda name: None)
     _check_config(cfg)
     H, W = left.shape
     D = cfg.num_disparities
@@ -123,10 +104,13 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
         0)
     packed = (best_d * 256 + delta + 15) >> 4
     disp = torch.where(valid & tex_ok & ~uniq_bad, packed, invalid).to(torch.int16)
+    mark("BM prefilter, K8, texture, uniqueness, subpixel")
 
     if cfg.disp12_max_diff >= 0:
         disp = lr_check(disp, best_cost, D, cfg.disp12_max_diff, plain=plain)
+    mark("LR check (K6)")
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
         disp = filter_speckles(disp, invalid, cfg.speckle_window_size,
                                cfg.speckle_range * DISP_SCALE, plain=plain)
+    mark("speckle (K2 + K7 + K2 + apply)")
     return disp

@@ -9,10 +9,11 @@ Port of `rt_depth_map_tpu/ops/cc.py`:
 - `connected_components_scan`: labels of the components whose neighbouring
   values differ by at most max_diff (the speckle filter's 4-connected
   value-edge mode).
-- `component_small`: whether each active pixel's component has at most
-  max_size pixels, by the TPU path of the reference (`cc.py:360-388`): K7
-  counts each root's pixels, the root's decision (0 small, 1 big) is
-  min-propagated to its members by K2.
+- `component_small_field` / `component_small`: whether each active pixel's
+  component has at most max_size pixels, by the TPU path of the reference
+  (`cc.py:360-388`): K7 counts each root's pixels and writes the root's
+  decision (0 small, 1 big; `speckle_decision`), which K2 min-propagates to
+  its members.
 
 The propagation is K2 (`ops/cuda/cc_sweep.py`), capped at CC_MAX_ROUNDS
 sweeps: blob-like masks converge in 2-4, and the cap bounds adversarial
@@ -27,13 +28,12 @@ from typing import Optional, Tuple
 import torch
 
 from rt_depth_map_tpu_torch.ops.cuda.cc_sweep import (
-    BIG,
     seg_min_propagate,
     seg_min_propagate_plain,
 )
 from rt_depth_map_tpu_torch.ops.cuda.histogram import (
-    label_histogram_banded,
-    label_histogram_plain,
+    speckle_decision,
+    speckle_decision_plain,
 )
 
 #: propagation sweeps before the loop stops (the reference's default cap)
@@ -100,25 +100,27 @@ def connected_components_scan(values: torch.Tensor, active: torch.Tensor,
               allowed_h, allowed_v, max_rounds=max_rounds)
 
 
+def component_small_field(labels: torch.Tensor, active: torch.Tensor,
+                          edges: Tuple, max_size: int,
+                          max_rounds: Optional[int] = CC_MAX_ROUNDS,
+                          plain: bool = False) -> torch.Tensor:
+    """(H, W) int32, 0 where the active pixel's 4-connected component over
+    `edges` (`value_edges`, as `connected_components_scan` labelled it) has
+    at most max_size pixels: each root's decision (0 small, 1 big, BIG
+    elsewhere), min-propagated by K2. The root is its component's minimum,
+    so min-propagation hands every member the root's decision."""
+    active = active.contiguous()
+    decide = speckle_decision_plain if plain else speckle_decision
+    field = decide(labels, active, max_size)
+    allowed_h, allowed_v = edges
+    fn = seg_min_propagate_plain if plain else seg_min_propagate
+    return fn(field, active, allowed_h, allowed_v, max_rounds=max_rounds)
+
+
 def component_small(labels: torch.Tensor, active: torch.Tensor, edges: Tuple,
                     max_size: int, max_rounds: Optional[int] = CC_MAX_ROUNDS,
                     plain: bool = False) -> torch.Tensor:
     """(H, W) bool: the active pixel's 4-connected component over `edges`
-    (`value_edges`, as `connected_components_scan` labelled it) has at most
-    max_size pixels."""
-    H, W = labels.shape
-    active = active.contiguous()
-    if plain:
-        counts = label_histogram_plain(labels, active)
-    else:
-        counts = label_histogram_banded(labels, active, max_size)
-    is_root = active & (labels == _linear_index(H, W, labels.device))
-    # 0 = small at the root, 1 = big at the root, BIG elsewhere: the root is
-    # its component's minimum, so min-propagation hands every member the
-    # root's decision
-    field = torch.where(is_root, (counts > max_size).to(torch.int32), BIG)
-    allowed_h, allowed_v = edges
-    fn = seg_min_propagate_plain if plain else seg_min_propagate
-    field = fn(field.to(torch.int32).contiguous(), active, allowed_h,
-               allowed_v, max_rounds=max_rounds)
-    return active & (field == 0)
+    has at most max_size pixels (`component_small_field` == 0)."""
+    return active & (component_small_field(labels, active, edges, max_size,
+                                           max_rounds, plain) == 0)

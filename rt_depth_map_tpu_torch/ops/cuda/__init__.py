@@ -12,8 +12,14 @@ from rt_depth_map_tpu_torch.ops.cuda.cc_sweep import seg_min_propagate  # noqa: 
 from rt_depth_map_tpu_torch.ops.cuda.histogram import (  # noqa: F401
     label_histogram,
     label_histogram_banded,
+    speckle_apply,
+    speckle_decision,
 )
-from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (  # noqa: F401
+    lr_resolve,
+    lr_resolve_bm,
+    lr_resolve_sgbm,
+)
 from rt_depth_map_tpu_torch.ops.cuda.remap import rectify_pair, remap_u8  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
@@ -37,6 +43,10 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/bm_kernel.py:197"),
     (lr_resolve, "rt_depth_map_tpu_torch/csrc/lr_resolve.cu",
      "rt_depth_map_tpu/ops/pallas/lr_resolve.py:106"),
+    (lr_resolve_sgbm, "rt_depth_map_tpu_torch/csrc/lr_resolve.cu",
+     "rt_depth_map_tpu/ops/pallas/lr_resolve.py:106"),
+    (lr_resolve_bm, "rt_depth_map_tpu_torch/csrc/lr_resolve.cu",
+     "rt_depth_map_tpu/ops/pallas/lr_resolve.py:106"),
     (sgm_cost_volume, "rt_depth_map_tpu_torch/csrc/sgm_cost.cu",
      "rt_depth_map_tpu/ops/pallas/sgm_cost.py:283"),
     (vol_transpose, "rt_depth_map_tpu_torch/csrc/vol_transpose.cu",
@@ -57,6 +67,10 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
     (label_histogram, "rt_depth_map_tpu_torch/csrc/histogram.cu",
      "rt_depth_map_tpu/ops/pallas/histogram.py:309"),
+    (speckle_decision, "rt_depth_map_tpu_torch/csrc/histogram.cu",
+     "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
+    (speckle_apply, "rt_depth_map_tpu_torch/csrc/histogram.cu",
+     "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
 )
 
 

@@ -110,6 +110,16 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+def on_card(t, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (run the plain version); raise for any other device."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return True
+
+
 def require(t, name: str, dtype, shape=None) -> None:
     """Validate a tensor handed to a kernel: CUDA, dtype, shape, contiguity."""
     if not t.is_cuda:

@@ -21,7 +21,7 @@ one CUDA launch a call.
 `bm_cost_wta` launches the kernel for CUDA tensors and runs
 `bm_cost_wta_plain` for CPU tensors; any other device raises. The card
 takes 1 <= D <= MAX_D, where the BM LR check's packed key also ends
-(`ops/bm.py` `lr_key_planes`); the plain version takes any D.
+(`ops/cuda/lr_resolve.py` `lr_key_planes_bm`); the plain version takes any D.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ GPU). After the elementwise plane preprocessing and K3's cost volume
       partial -> K9d the three top-down paths + partial, winner-take-all;
   4 paths: K9a left-to-right -> K9d top-down + partial, winner-take-all;
 
-then the inline left-right check on K6 and the speckle filter (K2 + K7 +
-K2). Every volume keeps D contiguous. The bidir route's transposes swap the
+then the inline left-right check (one launch of K6's SGBM entry) and the
+speckle filter (K2, K7 with the size decision, K2, the apply). Every volume keeps D contiguous. The bidir route's transposes swap the
 two pixel axes, as the TPU's K12 turns (H, D, W1) into (W1, D, H) and back
 around its K4; the chained route scans the row-major volume directly (the
 TPU transposes there only to put D on its sublanes).
@@ -33,7 +33,10 @@ from typing import Callable, Optional
 import torch
 
 from rt_depth_map_tpu_torch.config import MatcherConfig
-from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (
+    lr_resolve_sgbm,
+    lr_resolve_sgbm_plain,
+)
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (  # noqa: F401
     halfpix,
     plane_stack,
@@ -69,9 +72,6 @@ from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
 
 DISP_SHIFT = 4
 DISP_SCALE = 1 << DISP_SHIFT
-LR_DPOW = 256  # packs (minS, best) keys; best < D <= 256
-BIGKEY = 2**31 - 1
-SENT = -(2**31)
 
 
 def _no_mark(name: str) -> None:
@@ -126,59 +126,13 @@ def swap_pixel_axes(V: torch.Tensor, plain: bool = False) -> torch.Tensor:
     return fn(V[:, None])[:, 0]
 
 
-def lr_key_planes_sgbm(disp: torch.Tensor, best: torch.Tensor,
-                       minS: torch.Tensor, minX1: int, width1: int,
-                       num_disp: int):
-    """K6's inputs of the inline SGBM left-right check, (d_int, key, reads,
-    kwargs): each column's winner and packed (minS, best) key over the full
-    width (sentinels outside [minX1, minX1 + width1) and where the match
-    leaves the image), the two read-back planes (the floor and the ceiling
-    of the x16 disparity), and K6's parameters."""
-    H, W = disp.shape
-    dev = disp.device
-    d16 = disp.to(torch.int32)
-    xs1 = torch.arange(width1, dtype=torch.int32, device=dev) + minX1
-    valid1 = d16[:, minX1: minX1 + width1] != -DISP_SCALE
-    x2 = xs1 - best
-    in_rng = valid1 & (x2 >= 0) & (x2 < W)
-    keyW = torch.full((H, W), BIGKEY, dtype=torch.int32, device=dev)
-    keyW[:, minX1: minX1 + width1] = torch.where(in_rng, minS * LR_DPOW + best,
-                                                 BIGKEY)
-    d_intW = torch.full((H, W), SENT, dtype=torch.int32, device=dev)
-    d_intW[:, minX1: minX1 + width1] = best
-    reads = ((d16 >> DISP_SHIFT).contiguous(),
-             ((d16 + DISP_SCALE - 1) >> DISP_SHIFT).contiguous())
-    kw = dict(n_w=num_disp, r_lo=-1, n_r=num_disp + 2, Dpow=LR_DPOW, c0=0,
-              invalid=-DISP_SCALE)
-    return d_intW, keyW, reads, kw
-
-
 def lr_check_sgbm(disp: torch.Tensor, best: torch.Tensor, minS: torch.Tensor,
                   minX1: int, width1: int, num_disp: int, max_diff: int,
                   plain: bool = False) -> torch.Tensor:
     """The inline SGBM left-right check (ops/sgbm.py `_lr_check_sgbm`,
-    min_disparity 0): the right view's winner per column from the packed
-    (minS, best) keys, read back at both the floor and the ceiling of each
-    pixel's disparity through K6; a pixel is invalid only when BOTH
-    read-backs disagree by more than max_diff."""
-    W = disp.shape[1]
-    invalid = -DISP_SCALE
-    d_intW, keyW, reads, kw = lr_key_planes_sgbm(disp, best, minS, minX1,
-                                                 width1, num_disp)
-    d_lo, d_hi = reads
-    xsW = torch.arange(W, dtype=torch.int32, device=disp.device)
-    ok_range = (xsW >= minX1) & (xsW < minX1 + width1)
-    validW = ok_range & (disp != invalid)
-    oka = ((xsW - d_lo) >= 0) & ((xsW - d_lo) < W)
-    okb = ((xsW - d_hi) >= 0) & ((xsW - d_hi) < W)
-    fn = lr_resolve_plain if plain else lr_resolve
-    d2a, d2b = fn(d_intW, keyW, reads, **kw)
-    d2a = torch.where(oka, d2a, invalid)
-    d2b = torch.where(okb, d2b, invalid)
-    bad = (validW
-           & oka & (d2a >= 0) & ((d2a - d_lo).abs() > max_diff)
-           & okb & (d2b >= 0) & ((d2b - d_hi).abs() > max_diff))
-    return torch.where(bad, torch.full_like(disp, invalid), disp)
+    min_disparity 0) on K6's SGBM entry: `lr_resolve_sgbm_plain`."""
+    fn = lr_resolve_sgbm_plain if plain else lr_resolve_sgbm
+    return fn(disp, best, minS, minX1, width1, num_disp, max_diff)
 
 
 def check_config(cfg: MatcherConfig, W: int) -> None:
@@ -271,9 +225,9 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     if cfg.disp12_max_diff >= 0:
         disp = lr_check_sgbm(disp, best, minS, minX1, width1, D,
                              cfg.disp12_max_diff, plain=plain)
-    mark("LR check (K6 + glue)")
+    mark("LR check (K6)")
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
         disp = filter_speckles(disp, invalid, cfg.speckle_window_size,
                                cfg.speckle_range * DISP_SCALE, plain=plain)
-    mark("speckle (K2 + K7 + K2)")
+    mark("speckle (K2 + K7 + K2 + apply)")
     return disp

@@ -203,8 +203,7 @@ class Engine:
             # estimator.cpp:55)
             disp = stereo_bm(lrect, rrect, st.matcher,
                              roi1=matching_region(boxes), roi2=None,
-                             plain=plain)
-            mark("BM matcher (K8, K6, speckle)")
+                             plain=plain, mark=mark)
 
         dint = disparity_fixed_to_float(disp)
         xyz = reproject_to_3d(dint, st.Q, st.matcher.min_disparity, True)

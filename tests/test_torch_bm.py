@@ -29,7 +29,13 @@ from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
     bm_plan,
     bm_smem,
 )
-from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve_plain
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (
+    LR_PX,
+    LR_PXS,
+    lr_plan,
+    lr_resolve_bm,
+    lr_resolve_plain,
+)
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
 from torch_helpers import stereo_pair, t
 
@@ -148,6 +154,39 @@ def test_lr_check_matches_jax():
                                        0, D, max_diff))
         got = tbm.lr_check(t(disp), t(cost), D, max_diff)
         np.testing.assert_array_equal(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("D", [128, 288])
+def test_lr_check_bm_plain_matches_jax(D):
+    """The plain BM check and its entry on a CPU tensor against the
+    reference's `_lr_check` (XLA path) at the D of the BM point and of the
+    default BM matcher on a 1920x1080 camera (a 9-bit d in the key)."""
+    H, W = 20, D + 140
+    rng = np.random.default_rng(D)
+    disp = rng.integers(-16, D * 16, size=(H, W)).astype(np.int16)
+    disp[rng.random((H, W)) < 0.2] = -16
+    cost = rng.integers(0, 60000, size=(H, W)).astype(np.int32)
+    j_lr = jax.jit(jbm._lr_check, static_argnums=(2, 3, 4))
+    for max_diff in (0, 1, 3):
+        ref = np.asarray(j_lr(jnp.asarray(disp), jnp.asarray(cost), 0, D, max_diff))
+        got = tbm.lr_check(t(disp), t(cost), D, max_diff, plain=True)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert torch.equal(lr_resolve_bm(t(disp), t(cost), D, max_diff), got)
+        assert (ref != disp).any() and (ref != -16).any()
+
+
+@pytest.mark.parametrize("W", [1, 61, 1280, 1920, 3840, 4096, 4097, 8192, 8193])
+def test_lr_plan(W):
+    """K6's launch plan: whole warps of at most 1024 threads covering the
+    row, LR_PX pixels a thread where that fits, more where it does not."""
+    if W > 1024 * LR_PXS[-1]:
+        with pytest.raises(ValueError):
+            lr_plan(W)
+        return
+    px, tx, rows = lr_plan(W)
+    assert px in LR_PXS and px >= LR_PX and tx % 32 == 0 and tx * px >= W
+    assert tx * rows <= 1024 and rows >= 1
+    assert px == LR_PX or -(-W // (px // 2)) > 1024  # the fewest that fit
 
 
 ROIS = {

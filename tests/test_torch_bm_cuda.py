@@ -1,5 +1,6 @@
 """K8 and K6 on the card: the BM cost + winner-take-all kernel
-(`csrc/bm_kernel.cu`) and the LR resolve kernel against their plain
+(`csrc/bm_kernel.cu`) and the LR resolve kernel's three entries (the
+general one, the SGBM check and the BM check) against their plain
 versions, bit for bit on every output. The tests need a CUDA device and
 skip without one; the file imports no JAX, so it also runs on a machine with
 the card (whose Python has no JAX, hence no conftest):
@@ -12,7 +13,14 @@ import pytest
 import torch
 
 from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import bm_cost_wta, bm_cost_wta_plain
-from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve, lr_resolve_plain
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (
+    lr_resolve,
+    lr_resolve_bm,
+    lr_resolve_bm_plain,
+    lr_resolve_plain,
+    lr_resolve_sgbm,
+    lr_resolve_sgbm_plain,
+)
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
 from torch_helpers import cuda_or_skip, stereo_pair, t
 
@@ -80,3 +88,55 @@ def test_lr_kernel_matches_plain_on_cuda(H, W, D):
     for g, r in zip(lr_resolve(dm, k, (dm,), **kw),
                     lr_resolve_plain(dm, k, (dm,), **kw)):
         assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,D", [(40, 200, 32), (97, 301, 128)])
+def test_lr_kernel_two_planes_match_plain_on_cuda(H, W, D):
+    dev = cuda_or_skip()
+    d_match, key = _lr_inputs(6, H, W, D)
+    rm2 = np.clip(d_match + 1, -3, D + 3).astype(np.int32)
+    kw = dict(n_w=D - 3, r_lo=-2, n_r=D - 5, Dpow=4096, c0=-5, invalid=-7)
+    dm, k, r2 = t(d_match, dev), t(key, dev), t(rm2, dev)
+    for g, r in zip(lr_resolve(dm, k, (dm, r2), **kw),
+                    lr_resolve_plain(dm, k, (dm, r2), **kw)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,D", [(24, 184, 64), (45, 300, 128), (9, 1920, 256),
+                                   (3, 3840, 128), (5, 130, 128)])
+def test_lr_check_sgbm_kernel_matches_plain_on_cuda(H, W, D):
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(H * W + D)
+    W1 = W - D
+    best = t(rng.integers(0, D, size=(H, W1)).astype(np.int32), dev)
+    minS = t(rng.integers(-2000, 60000, size=(H, W1)).astype(np.int32), dev)
+    dval = best.cpu().numpy() * 16 + rng.integers(-8, 9, size=(H, W1))
+    dval[rng.random((H, W1)) < 0.15] = -16
+    disp = np.full((H, W), -16, np.int16)
+    disp[:, D:] = dval
+    disp = t(disp, dev)
+    for max_diff in (0, 1, 3):
+        before = lr_resolve_sgbm.launches
+        got = lr_resolve_sgbm(disp, best, minS, D, W1, D, max_diff)
+        assert lr_resolve_sgbm.launches == before + 1
+        assert torch.equal(got, lr_resolve_sgbm_plain(disp, best, minS, D, W1, D,
+                                                      max_diff))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,D", [(40, 200, 32), (97, 301, 128), (9, 1920, 288),
+                                   (5, 700, 384)])
+def test_lr_check_bm_kernel_matches_plain_on_cuda(H, W, D):
+    dev = cuda_or_skip()
+    rng = np.random.default_rng(H * W + D)
+    disp = rng.integers(-16, D * 16, size=(H, W)).astype(np.int16)
+    disp[rng.random((H, W)) < 0.2] = -16
+    cost = t(rng.integers(0, 60000, size=(H, W)).astype(np.int32), dev)
+    disp = t(disp, dev)
+    for max_diff in (0, 1, 3):
+        before = lr_resolve_bm.launches
+        got = lr_resolve_bm(disp, cost, D, max_diff)
+        assert lr_resolve_bm.launches == before + 1
+        assert torch.equal(got, lr_resolve_bm_plain(disp, cost, D, max_diff))

@@ -24,6 +24,7 @@ from rt_depth_map_tpu.ops.pallas.sgm_cost import sgm_cost_volume_pallas
 from rt_depth_map_tpu_torch.config import MatcherConfig
 from rt_depth_map_tpu_torch.ops import sgbm as tsg
 from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve_sgbm
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
     plane_stack,
     sgm_cost_volume,
@@ -193,6 +194,41 @@ def test_stereo_sgbm_path_counts_match_jax(num_paths):
     got = tsg.stereo_sgbm(t(left), t(right), cfg)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert (ref != -16).sum() > H * (W - D) // 4
+
+
+def _lr_sgbm_inputs(seed, H, W, D):
+    """(disp, best, minS) as the matcher hands them to the inline LR check:
+    best over [0, D) and minS (negative too: the carries start at zero) on
+    the W - D computed columns, the x16 disparity with its subpixel step
+    and invalid pixels, and -16 left of the computed range."""
+    rng = np.random.default_rng(seed)
+    W1 = W - D
+    best = rng.integers(0, D, size=(H, W1)).astype(np.int32)
+    minS = rng.integers(-2000, 60000, size=(H, W1)).astype(np.int32)
+    dval = best * 16 + rng.integers(-8, 9, size=(H, W1))
+    dval[rng.random((H, W1)) < 0.15] = -16
+    disp = np.full((H, W), -16, np.int16)
+    disp[:, D:] = dval
+    return disp, best, minS
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_lr_check_sgbm_plain_matches_jax(D):
+    """The plain SGBM check (the composed planes, the general resolve and
+    the comparisons) and its entry on a CPU tensor against the reference's
+    `_lr_check_sgbm` (XLA path), bit for bit."""
+    H, W = 24, D + 120
+    disp, best, minS = _lr_sgbm_inputs(D, H, W, D)
+    j_lr = jax.jit(jsg._lr_check_sgbm, static_argnums=(3, 4, 5, 6, 7))
+    for max_diff in (0, 1, 3):
+        ref = np.asarray(j_lr(jnp.asarray(disp), jnp.asarray(best),
+                              jnp.asarray(minS), D, W - D, 0, D, max_diff))
+        got = tsg.lr_check_sgbm(t(disp), t(best), t(minS), D, W - D, D, max_diff,
+                                plain=True)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert torch.equal(lr_resolve_sgbm(t(disp), t(best), t(minS), D, W - D, D,
+                                           max_diff), got)
+        assert (ref != disp).any() and (ref != -16).any()
 
 
 def test_kernel_wrappers_run_plain_on_cpu():

@@ -1,10 +1,10 @@
 """Port parity: the speckle filter. The value-edge components against the JAX
 XLA loop (capped and not), the plain K7 and K10 against the Pallas
 histograms in interpret mode (K7: the count <= max_size decision; K10: exact
-counts), `component_small` against the reference's forced TPU path on a
-snake where the round cap binds, and `filter_speckles` (alone and inside
-stereo_bm) against the JAX CPU path on converging inputs. Integer,
-bit-exact."""
+counts), the plain speckle decision, K2 broadcast and apply against the
+reference's forced TPU path, `component_small` against it on a snake where
+the round cap binds, and `filter_speckles` (alone and inside stereo_bm)
+against the JAX CPU path on converging inputs. Integer, bit-exact."""
 
 import dataclasses
 
@@ -35,10 +35,15 @@ from rt_depth_map_tpu_torch.ops.cc import (
     value_edges,
 )
 from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+from rt_depth_map_tpu_torch.ops.cuda.cc_sweep import seg_min_propagate_plain
 from rt_depth_map_tpu_torch.ops.cuda.histogram import (
     label_histogram,
     label_histogram_banded,
     label_histogram_plain,
+    speckle_apply,
+    speckle_apply_plain,
+    speckle_decision,
+    speckle_decision_plain,
 )
 from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
 from torch_helpers import cuda_or_skip, snake, stereo_pair, t
@@ -121,6 +126,45 @@ def test_component_small_matches_forced_pallas_path_under_the_cap():
     got = component_small(labels, t(act), value_edges(t(disp), t(act), 16), 2500)
     np.testing.assert_array_equal(got.numpy(), ref)
     assert got.any() and (act & ~got.numpy()).any()
+
+
+def _decision_case(case):
+    """(disp, max_diff) of a decision case: blobs from a seed, or one
+    component covering the frame (a single root)."""
+    if case == "one component":
+        return np.full((40, 128), 48, np.int16), 16
+    return _blob_disparity(int(case[-1]), 40, 128), 16
+
+
+@pytest.mark.parametrize("case,max_size", [
+    ("seed 0", 6), ("seed 1", 25), ("seed 2", 100), ("seed 3", 0),
+    ("one component", 100), ("one component", 40 * 128),
+])
+def test_speckle_decision_and_apply_plain_match_forced_pallas(case, max_size):
+    """`speckle_decision_plain`, the plain K2 broadcast and
+    `speckle_apply_plain` against the reference's TPU path
+    (`component_small` with the Pallas histogram and sweep in interpret
+    mode) and the filter's final select."""
+    disp, max_diff = _decision_case(case)
+    act = disp != -16
+    labels = connected_components_scan(t(disp), t(act), max_diff)
+    field = speckle_decision_plain(labels, t(act), max_size)
+    allowed_h, allowed_v = value_edges(t(disp), t(act), max_diff)
+    field = seg_min_propagate_plain(field, t(act), allowed_h, allowed_v,
+                                    max_rounds=CC_MAX_ROUNDS)
+    ref = np.asarray(j_component_small(
+        jnp.asarray(labels.numpy()), jnp.asarray(act), jnp.asarray(disp), max_diff,
+        max_size, 4, interpret=True, force_pallas=True, max_rounds=CC_MAX_ROUNDS))
+    np.testing.assert_array_equal(act & (field.numpy() == 0), ref)
+    got = speckle_apply_plain(t(disp), field, -16)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jnp.where(jnp.asarray(ref), jnp.int16(-16), jnp.asarray(disp))))
+    # the entries run their plain versions on CPU tensors
+    assert torch.equal(speckle_decision(labels, t(act), max_size),
+                       speckle_decision_plain(labels, t(act), max_size))
+    assert torch.equal(speckle_apply(t(disp), field, -16), got)
+    if case == "one component":
+        assert ref.all() == (max_size >= disp.size)
 
 
 @pytest.mark.parametrize("seed,max_size,max_diff", [(0, 40, 512), (3, 20, 16),
