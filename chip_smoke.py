@@ -88,7 +88,28 @@ the script exits non-zero:
   9. engine, the default BM matcher on a 1920x1080 camera: a configuration
      written for 1280x720 (D=192, block size 13) scales D with the width to
      288; the same checks on two frames (K8 must launch); its timing and
-     stage profile.
+     stage profile;
+ 10. engine, the WLS post filter (enable_post_filter) on SGM-8 720p and
+     BM-128: the right matcher over the mirrored range (min_disparity -127)
+     and the WLS filter on the smoother kernel; the same checks on two
+     frames each, `filtered_disparity` within 1 (1/16 px) of the plain frame
+     program on 99.9% of the pixels and within 16 everywhere; a frame's
+     launches: K3 twice, K12 four times, K4 and K5 twice (SGM), K8 twice
+     (BM), the smoother six times; its timing, device time and stage
+     profile.
+
+Phase 3 also holds the kernels whose arguments took min_disparity against
+their plain versions: K3 at 720p D=128 at -127 (the right matcher's call,
+views swapped) and +16, K8 at -127 (720p D=128 bs 13) and -287 (1920x1080
+D=288, the right matcher of the default BM matcher there), K6's SGBM and BM
+entries at +16 and -8 on the matchers' own outputs; and the smoother kernel
+(`tridiag_smooth`, one launch a sweep) along the rows and the columns of the
+1280x720 frame's WLS inputs at the first sweep's lambda, and along the rows
+under the guide of an unblurred texture (the "fine" scene's left view as
+the camera gives it, 1% of whose weights lie below 2^-100), within 1e-5 of
+the input's range of
+its plain version, beside one scanline alone (one thread walking the chain
+of dependent divides: the latency floor of a sweep).
 
 The last lines are the kernels' JSON summary (each kernel's first timed
 case, and under `cases` every timed case with its own bound and library
@@ -116,6 +137,7 @@ ODD = (700, 1000, 64)  # (H, W, D): H % 16 != 0 and W1 % 128 != 0
 #: 1080 % 16 == 8 puts it on the chained route
 STRETCH = (1080, 1920, 256)
 ENGINE_FRAMES = 4  # frames of each checked engine run
+POST_FRAMES = 2  # frames of each checked post-filter run (two matchers' plain programs)
 STRETCH_FRAMES = 2  # frames of the checked stretch run (its plain program is slow)
 TIMED_FRAMES = 30  # frames of the timed engine run
 DEV = "cuda"
@@ -147,6 +169,25 @@ GENERAL = ("lr_resolve", "label_histogram_banded", "label_histogram")
 LR_SPECKLE_PER_FRAME = {"speckle_decision": 1, "speckle_apply": 1}
 CHAINED_PATH = _SGM_COMMON + ("sgm_horiz_pass", "sgm_vert_pass", "sgm_final_wta")
 SGBM5_PATH = _SGM_COMMON + ("sgm_horiz_pass", "sgm_final_wta")
+#: the post filter's kernel: the smoother's tridiagonal solves
+POST = ("tridiag_smooth",)
+#: launches a frame with the post filter on: the right matcher repeats the
+#: left one's matching kernels (its LR check and speckle filter are off),
+#: and the smoother runs one launch a sweep, two sweeps an iteration, three
+#: iterations
+POST_PER_FRAME = {
+    "sgm": {"sgm_cost_volume": 2, "vol_transpose": 4, "sgm_horiz": 2,
+            "sgm_vert_wta": 2, "tridiag_smooth": 6},
+    "bm": {"bm_cost_wta": 2, "tridiag_smooth": 6},
+}
+#: the smoother kernel against its plain version: within this share of the
+#: input's range (the same float32 operations in the same order; they part
+#: only where the card's expf or the plain version's float64-emulated fused
+#: multiply-add rounds otherwise)
+SMOOTH_RTOL = 1e-5
+#: filtered_disparity against the plain frame program: within 1 (1/16 px)
+#: on this share of the pixels and within 16 (1 px) everywhere
+WLS_WITHIN_1 = 0.999
 
 
 def _sync():
@@ -207,14 +248,19 @@ def _wall_ms(fn, reps):
     return statistics.median(times)
 
 
-def _max_abs_err(got, ref) -> int:
+def _max_abs_err(got, ref):
+    """The largest |got - ref| over the outputs: an int for integer ones, a
+    float for float ones."""
     got = got if isinstance(got, (tuple, list)) else (got,)
     ref = ref if isinstance(ref, (tuple, list)) else (ref,)
     err = 0
     for g, r in zip(got, ref):
         if g.shape != r.shape or g.dtype != r.dtype:
             raise AssertionError(f"shape/dtype {g.shape} {g.dtype} != {r.shape} {r.dtype}")
-        err = max(err, int((g.long() - r.long()).abs().max()))
+        if g.is_floating_point():
+            err = max(err, float((g.double() - r.double()).abs().max()))
+        else:
+            err = max(err, int((g.long() - r.long()).abs().max()))
     return err
 
 
@@ -313,7 +359,9 @@ def _rectification(w, h):
         image_size=(w, h))
 
 
-def _source(w, h, ring=0):
+def _source(w, h, ring=0, scene="default"):
+    """The synthetic pair of every phase; another scene family (no
+    "default") places its own objects."""
     from rt_depth_map_tpu_torch.sources import SyntheticStereoSource
     from rt_depth_map_tpu_torch.sources.synthetic import SyntheticObject
 
@@ -329,19 +377,22 @@ def _source(w, h, ring=0):
             (620, 330, 260, 200, 80.0, 0.0, 1.0),
             (960, 160, 200, 160, 110.0, -1.5, 0.0))
     ]
-    src = SyntheticStereoSource(w, h, seed=11, objects=objects, ring=ring)
+    src = SyntheticStereoSource(w, h, seed=11, ring=ring, scene=scene,
+                                objects=objects if scene == "default" else None)
     src.rectified = False  # the engine applies the rectification maps
     return src
 
 
-def _config(kind, w, h, d=D, num_paths=8):
+def _config(kind, w, h, d=D, num_paths=8, post_filter=False):
     """kind "sgm" (D = d), "bm" (bench.py's BM point) or "bm-default" (the
     BM defaults of a configuration written for 1280x720, whose D the engine
-    scales with the camera's width: 288 at 1920)."""
+    scales with the camera's width: 288 at 1920); post_filter: the WLS post
+    filter on."""
     from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 
     if kind == "bm-default":
-        return EngineConfig(matcher=MatcherConfig(kind="bm"))
+        return EngineConfig(matcher=MatcherConfig(kind="bm"),
+                            enable_post_filter=post_filter)
     if kind == "sgm":
         m = MatcherConfig(kind="sgm", num_disparities=d, block_size=BS,
                           num_paths=num_paths, pre_filter_cap=0)
@@ -349,13 +400,14 @@ def _config(kind, w, h, d=D, num_paths=8):
     else:  # the BM defaults, speckle filter on
         m = MatcherConfig(kind="bm", num_disparities=BM_D, block_size=BM_BS)
         nd = BM_D
-    return EngineConfig(width=w, height=h, number_of_disparities=nd, matcher=m)
+    return EngineConfig(width=w, height=h, number_of_disparities=nd, matcher=m,
+                        enable_post_filter=post_filter)
 
 
-def _engine(kind, w, h, ring=0, d=D, num_paths=8):
+def _engine(kind, w, h, ring=0, d=D, num_paths=8, post_filter=False):
     from rt_depth_map_tpu_torch import Engine
 
-    return Engine(_config(kind, w, h, d, num_paths),
+    return Engine(_config(kind, w, h, d, num_paths, post_filter),
                   rectification=_rectification(w, h),
                   source=_source(w, h, ring), device=DEV)
 
@@ -371,20 +423,21 @@ def _snake(h, w, arms):
 
 
 def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
-                  frames=ENGINE_FRAMES, absent=()):
+                  frames=ENGINE_FRAMES, absent=(), post_filter=False):
     """Engine.run with the counts set to 0 just before and every plain
     version guarded against CUDA tensors (`_no_plain_on_card`); every kernel
     of the path launched, none of `absent` or of K6's and K7's general
     entries, the LR check's and the speckle filter's entries once a frame,
-    and every frame equal to the plain frame program. Returns the engine and
-    the launch counts of the run."""
+    and every frame equal to the plain frame program (with the post filter,
+    its filtered disparity within 1 on WLS_WITHIN_1 of the pixels and 16
+    everywhere). Returns the engine and the launch counts of the run."""
     import torch
 
     from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 
-    eng = _engine(kind, w, h, d=d, num_paths=num_paths)
+    eng = _engine(kind, w, h, d=d, num_paths=num_paths, post_filter=post_filter)
     what = (f"phase {phase} {f'sgm-{num_paths}' if kind == 'sgm' else kind} engine "
-            f"{w}x{h} D={eng.num_disparities}")
+            f"{w}x{h} D={eng.num_disparities}{' + WLS post filter' if post_filter else ''}")
     eng.warmup()
     results = {}
     with _no_plain_on_card() as guarded:
@@ -415,6 +468,20 @@ def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
             if not np.array_equal(getattr(res, k), ref[k].cpu().numpy()):
                 raise AssertionError(f"{what} frame {i}: {k} differs from the "
                                      f"plain program")
+        if post_filter:
+            f = res.filtered_disparity
+            err = np.abs(f.astype(np.int32)
+                         - ref["filtered_disparity"].cpu().numpy().astype(np.int32))
+            if (f.shape != (h, w) or (err <= 1).mean() < WLS_WITHIN_1
+                    or err.max() > 16):
+                raise AssertionError(f"{what} frame {i}: filtered_disparity off the "
+                                     f"plain program's (max |err| {err.max()}, "
+                                     f"{(err <= 1).mean():.5f} within 1)")
+            print(f"{what} frame {i}: filtered_disparity max |err| {err.max()} "
+                  f"against the plain program, {(err <= 1).mean():.6f} of pixels "
+                  f"within 1", flush=True)
+        elif res.filtered_disparity is not None:
+            raise AssertionError(f"{what}: a filtered disparity without the post filter")
         del ref
         if res.disparity.shape != (h, w) or res.boxes[:, 4].sum() == 0:
             raise AssertionError(f"{what} frame {i}: bad shape or no box")
@@ -571,6 +638,8 @@ def main() -> int:
         vol_transpose,
         vol_transpose_plain,
     )
+    from rt_depth_map_tpu_torch.ops.cuda.wls import tridiag_smooth, tridiag_smooth_plain
+    from rt_depth_map_tpu_torch.ops import wls as wls_ops
     from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
     from rt_depth_map_tpu_torch.ops.remap import remap_bilinear
     from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
@@ -626,17 +695,17 @@ def main() -> int:
     stats = {}
 
     def check(wrapper, kernel_fn, plain_fn, what, bound=None, library_fn=None,
-              plain_reps=15, timed=True, primary=True):
-        """Exact equality, then timing (timed=False: a variant case, checked
-        only); the first timed primary case of a kernel is the one its
-        summary reports, and every timed case is listed under its `cases`
-        (bound: (in_bytes, out_bytes, ops); library_fn: one PyTorch call
-        computing the same function, timed beside every timed case that has
-        one)."""
+              plain_reps=15, timed=True, primary=True, tol=0):
+        """Exact equality (float outputs: within tol), then timing
+        (timed=False: a variant case, checked only); the first timed primary
+        case of a kernel is the one its summary reports, and every timed case
+        is listed under its `cases` (bound: (in_bytes, out_bytes, ops);
+        library_fn: one PyTorch call computing the same function, timed
+        beside every timed case that has one)."""
         err = _max_abs_err(kernel_fn(), plain_fn())
-        if err != 0:
+        if err > tol:
             raise AssertionError(f"{wrapper.__name__} {what}: kernel != plain "
-                                 f"(max |err| {err})")
+                                 f"(max |err| {err}, tolerance {tol})")
         if not timed:
             entry = stats.setdefault(wrapper.__name__, dict(max_abs_err=0, cases=[]))
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -1325,6 +1394,107 @@ def main() -> int:
               f"D=64: equals the numpy golden ({int((ref != -16).sum())} valid "
               f"pixels)", flush=True)
 
+    # -- min_disparity != 0, and the WLS smoother ----------------------------
+    # K3 at the WLS right matcher's -127 (the views swapped, as the right
+    # matcher takes them) and at +16, 720p D=128
+    dtype = sg.volume_dtype(BS, m.pre_filter_cap)
+    lpl_f = sg.plane_stack(lrect, m.pre_filter_cap)
+    rpl_f = sg.plane_stack(rrect, m.pre_filter_cap)
+    for md, (a, b), role in ((-127, (rpl_f, lpl_f), "right matcher"),
+                             (16, (lpl_f, rpl_f), "left view")):
+        C = sgm_cost_volume(a, b, D, BS, dtype, md)[0]
+        check(sgm_cost_volume,
+              lambda a=a, b=b, md=md: sgm_cost_volume(a, b, D, BS, dtype, md)[0],
+              lambda a=a, b=b, md=md: sgm_cost_volume_plain(a, b, D, BS, dtype, md)[0],
+              f"{H}x{W} D={D} minD={md} ({role}, W1 {C.shape[1]})",
+              bound=(_nbytes(a, b), _nbytes(C), _lanes(21 * C.numel(), C.element_size())),
+              plain_reps=3, primary=False)
+        del C
+    del lpl_f, rpl_f
+    # K6's SGBM entry at +16 and -8 on the bidir route's own outputs there
+    md12 = m.disp12_max_diff
+    for md in (16, -8):
+        C, minX1, W1 = sg.sgbm_cost_volume(lrect, rrect, D, BS, m.pre_filter_cap,
+                                           min_disp=md)
+        best, minS, dval, uniq = sg.aggregate_bidir(C, p1, p2, ur)
+        del C
+        inv = (md - 1) * 16
+        mdisp = torch.full((H, W), inv, dtype=torch.int16, device=dev)
+        mdisp[:, minX1: minX1 + W1] = torch.where(uniq != 0, inv,
+                                                  dval + md * 16).to(torch.int16)
+        args = (mdisp, best, minS, minX1, W1, D, md12, md)
+        checked = lr_resolve_sgbm(*args)
+        check(lr_resolve_sgbm, lambda a=args: lr_resolve_sgbm(*a),
+              lambda a=args: lr_resolve_sgbm_plain(*a), f"{W}x{H} D={D} minD={md}",
+              bound=(_nbytes(mdisp, best, minS), _nbytes(checked), 24 * H * W),
+              primary=False)
+        if torch.equal(checked, mdisp):
+            raise AssertionError(f"SGBM LR check minD={md}: no pixel invalidated")
+        del best, minS, dval, uniq, mdisp, checked
+    # K8 at the right matchers' ranges: -127 (720p D=128 bs 13) and -287
+    # (1920x1080 D=288, the default BM matcher's right matcher there), on the
+    # swapped prefiltered views
+    for a, b, d, md, what in (
+            (rp, lp, BM_D, -127, f"D={BM_D} bs={BM_BS} minD=-127 (right matcher)"),
+            (srp, slp, 288, -287, f"{str_w}x{str_h} D=288 bs={BM_BS} minD=-287 "
+                                  f"(right matcher)")):
+        check(bm_cost_wta, lambda a=a, b=b, d=d, md=md: bm_cost_wta(a, b, d, BM_BS, md),
+              lambda a=a, b=b, d=d, md=md: bm_cost_wta_plain(a, b, d, BM_BS, md), what,
+              bound=(_nbytes(a, b), 5 * 4 * a.numel(), a.numel() * d * (
+                  _lanes(1, 1) + _lanes(2, 2) + 1 + _lanes(2, 2))),
+              plain_reps=3, primary=False)
+    # K6's BM entry at +16 and -8 on the BM matcher's own outputs there
+    for md in (16, -8):
+        mcfg = bm_cfg.replace(min_disparity=md, disp12_max_diff=-1,
+                              speckle_window_size=0)
+        bd = bm_ops.stereo_bm(lrect, rrect, mcfg)
+        cost = bm_cost_wta(lp, rp, BM_D, BM_BS, md)[1]
+        args = (bd, cost, BM_D, bm_cfg.disp12_max_diff, md)
+        checked = lr_resolve_bm(*args)
+        check(lr_resolve_bm, lambda a=args: lr_resolve_bm(*a),
+              lambda a=args: lr_resolve_bm_plain(*a), f"{W}x{H} D={BM_D} minD={md}",
+              bound=(_nbytes(bd, cost), _nbytes(checked), 16 * bd.numel()),
+              primary=False)
+        if torch.equal(checked, bd):
+            raise AssertionError(f"BM LR check minD={md}: no pixel invalidated")
+    # the smoother on the flagship frame's WLS inputs (the SGM matchers' two
+    # disparities, the confidence floored as the smoother floors it), at the
+    # first sweep's lambda, along the rows (the wrapper transposes) and the
+    # columns: x, the confidence and the guide read once, u written once;
+    # ~18 float32 operations a pixel. Then one scanline alone: one thread
+    # walks the chain of dependent divides, the latency floor of a sweep.
+    dl = sg.stereo_sgbm(lrect, rrect, m)
+    dr = sg.stereo_sgbm(rrect, lrect, wls_ops.right_matcher_config(m))
+    xs, wgt, _ = wls_ops.smoother_inputs(dl, dr, m)
+    cf = torch.clamp(wgt, min=wls_ops.CONF_FLOOR)
+    lam1 = wls_ops.sweep_lambdas()[0]
+    tol = SMOOTH_RTOL * float(xs.max() - xs.min())
+    for dim, along in ((1, "rows"), (0, "columns")):
+        u = tridiag_smooth(xs, cf, lrect, lam1, 1.5, dim)
+        check(tridiag_smooth, lambda dim=dim: tridiag_smooth(xs, cf, lrect, lam1, 1.5, dim),
+              lambda dim=dim: tridiag_smooth_plain(xs, cf, lrect, lam1, 1.5, dim),
+              f"{W}x{H} along the {along}, lambda {lam1:.1f}",
+              bound=(_nbytes(xs, cf, lrect), _nbytes(u), 18 * H * W), plain_reps=1,
+              primary=dim == 1, tol=tol)
+    # the same inputs under the guide of an unblurred texture (the "fine"
+    # scene's left view as the camera gives it): 1% of its weights lie below
+    # 2^-100, whose stored cp the kernel divides on its scaled path
+    fine = rgb_to_gray(torch.from_numpy(_source(W, H, scene="fine").render(0)[0]).to(dev))
+    check(tridiag_smooth, lambda: tridiag_smooth(xs, cf, fine, lam1, 1.5, 1),
+          lambda: tridiag_smooth_plain(xs, cf, fine, lam1, 1.5, 1),
+          f"{W}x{H} along the rows, lambda {lam1:.1f}, unblurred-texture guide",
+          bound=(_nbytes(xs, cf, fine), _nbytes(u), 18 * H * W), plain_reps=1,
+          primary=False, tol=tol)
+    for n, along in ((W, "row"), (H, "column")):
+        line = (xs.t() if n == W else xs)[:, :1].contiguous()
+        one = (cf.t() if n == W else cf)[:, :1].contiguous()
+        g1 = (lrect.t() if n == W else lrect)[:, :1].contiguous()
+        chain_ms = _time_ms(lambda: tridiag_smooth(line, one, g1, lam1, 1.5, 0))
+        print(f"phase 3 tridiag_smooth chain floor: one {along} of {n} pixels alone "
+              f"{chain_ms:.4f} ms (events)", flush=True)
+    del dl, dr, xs, wgt, cf, u, fine
+    torch.cuda.empty_cache()
+
     # -- 4. the SGM engine (the main path) -----------------------------------
     sgm_eng, sgm_launches = _check_engine(4, "sgm", W, H, SGM_PATH)
     # the TPU's two transposes stay around K4, which is one call a frame
@@ -1389,19 +1559,42 @@ def main() -> int:
     profile(9, bmd_eng, spair, 10)
     del bmd_eng
 
+    # -- 10. the WLS post filter: SGM-8 720p and BM-128 ----------------------
+    post_runs = {}
+    for kind, path in (("sgm", SGM_PATH + POST), ("bm", BM_PATH + POST)):
+        p_eng, p_launches = _check_engine(10, kind, W, H, path, frames=POST_FRAMES,
+                                          post_filter=True)
+        got = {k: p_launches[k] / POST_FRAMES for k in POST_PER_FRAME[kind]}
+        if got != POST_PER_FRAME[kind]:
+            raise AssertionError(f"phase 10 {kind} + WLS: launches a frame {got}, "
+                                 f"expected {POST_PER_FRAME[kind]}")
+        print(f"phase 10 {kind} + WLS: launches a frame {got} (the right matcher's "
+              f"and the smoother's)", flush=True)
+        p_ms = _wall_ms(lambda: p_eng.frame_program(*pair), reps=5)
+        print(f"phase 10 {kind} + WLS timing on {card}: frame program {p_ms:.3f} ms",
+              flush=True)
+        profile(10, p_eng, pair, 5)
+        post_runs[kind] = p_launches
+        del p_eng
+        torch.cuda.empty_cache()
+
     # each kernel's launches on the path that runs it: the flagship's for
     # its kernels, the stretch run's for the chained passes, the BM run's
-    # for K8 (K10 runs on none); launches_by_path holds every run's counts
+    # for K8, the flagship's with the post filter for the smoother (K10
+    # runs on none); launches_by_path holds every run's counts
     runs = {f"sgm-8 {W}x{H} D={D} (bidir)": sgm_launches,
             f"bm {W}x{H} D={BM_D}": bm_launches,
             f"sgm-8 {str_w}x{str_h} D={str_d} (chained)": str_launches,
             f"sgm-5 {W}x{H} D={D} (chained)": sgbm5_launches,
-            f"bm {str_w}x{str_h} D=288 (default)": bmd_launches}
+            f"bm {str_w}x{str_h} D=288 (default)": bmd_launches,
+            f"sgm-8 {W}x{H} D={D} + WLS": post_runs["sgm"],
+            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"]}
     kernels = []
     for wrapper, source, replaces in KERNELS:
         n = wrapper.__name__
         s = stats[n]
-        launches = (sgm_launches if n in SGM_PATH else
+        launches = (post_runs["sgm"] if n in POST else
+                    sgm_launches if n in SGM_PATH else
                     str_launches if n in CHAINED_PATH else bm_launches)[n]
         kernels.append(dict(name=n, route="cuda", source=source,
                             replaces=replaces, launches=launches,

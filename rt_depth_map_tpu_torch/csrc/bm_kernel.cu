@@ -1,11 +1,17 @@
 // StereoBM block-matching cost with a winner-take-all, windows slid both ways.
 //
 // Replaces rt_depth_map_tpu/ops/pallas/bm_kernel.py bm_cost_wta. For every
-// pixel and every disparity d in [0, D) the cost is the bs x bs sum of
-// |L(y', x') - R(y', x' - d)| over the window centred on (y, x), with the
-// window sums zero-padded at the image border and |L - R| taken as 0 where
-// x' - d < 0 (the XLA formulation of rt_depth_map_tpu/ops/bm.py
-// _cost_volume, on every pixel). The (D, H, W) volume is never written.
+// pixel and every disparity index d in [0, D), disparity dd = minD + d, the
+// cost is the bs x bs sum of |L(y', x') - R(y', x' - dd)| over the window
+// centred on (y, x), with the window sums zero-padded at the image border
+// and |L - R| taken as 0 where x' - dd leaves [0, W) (the XLA formulation of
+// rt_depth_map_tpu/ops/bm.py _cost_volume, on every pixel). At minD < 0 the
+// right border x' - dd >= W falls inside the valid region: the term is 0
+// there, not |L - 0|, so a shifted right plane under an unchanged kernel
+// would not be exact; the vertical slide masks those d (bm_cut_low). minD
+// reaches the kernel only in the instantiations for minD != 0 (OFS); at
+// minD 0 it is the constant 0, so that code is the code without the offset.
+// The (D, H, W) volume is never written.
 //
 // Outputs, each (H, W) int32:
 //   best_d       argmin over d, ties to the LARGEST d (packed key
@@ -160,6 +166,15 @@ __device__ __forceinline__ void bm_keep_masks(int n_keep, uint32_t (&m)[4]) {
     m[j] = __funnelshift_lc(0xffffffffu, 0u, (unsigned)max(s - 32 * j, 0));
 }
 
+// Clear the bytes below n_cut (n_cut > 0) from the masks: the d whose right
+// column lies past the image's right edge (only at minD < 0).
+__device__ __forceinline__ void bm_cut_low(int n_cut, uint32_t (&m)[4]) {
+  uint32_t c[4];
+  bm_keep_masks(min(n_cut, 16), c);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) m[j] &= ~c[j];
+}
+
 // |L - R(x - d)| for d = d16 .. d16 + 15 as eight 16-bit pairs, the bytes
 // outside the masks zeroed.
 __device__ __forceinline__ void bm_absdiff16(const BmRow& g,
@@ -181,13 +196,18 @@ __device__ __forceinline__ void bm_absdiff16(const BmRow& g,
 // a time, branch-free: every load of the batch before its stores, so that
 // the loads' latencies overlap; a column past the halo re-reads the last
 // one and stores nothing. rq_n / rq_o: the offset in the new / old R ring
-// row of R(x - d16 - 15) for halo column 0. Only d <= x', d < D and
-// columns inside the image count; rows outside the image, and the rows
-// before the stripe, are zeros in the ring and add nothing.
+// row of R(x - minD - d16 - 15) for halo column 0. Only d with
+// 0 <= x' - minD - d < W, d < D and columns inside the image count; rows
+// outside the image, and the rows before the stripe, are zeros in the ring
+// and add nothing. OFS: minD != 0; at minD < 0 a right column can pass the
+// image's right edge and a column left of the image can meet one inside it.
+// Without OFS, minD is 0.
+template <bool OFS>
 __device__ __forceinline__ void bm_vertical(
     uint16_t* Vt, const BmLayout& s, int col0, int cstep, const uint8_t* Ln,
     const uint8_t* Rn, int rq_n, const uint8_t* Lo, const uint8_t* Ro,
-    int rq_o, int gx0, int W, int D, int d16) {
+    int rq_o, int gx0, int W, int D, int minD_, int d16) {
+  const int minD = OFS ? minD_ : 0;
   typedef LaneVec<uint32_t, 4> V8;
   for (int c = col0; c < s.CW; c += BM_BATCH * cstep) {
     int cc[BM_BATCH];
@@ -197,7 +217,13 @@ __device__ __forceinline__ void bm_vertical(
 #pragma unroll
     for (int u = 0; u < BM_BATCH; ++u) {
       const int cu = c + u * cstep, gx = gx0 + cu;
-      bm_keep_masks(cu < s.CW && gx < W ? min(gx, D - 1) - d16 + 1 : 0, m[u]);
+      const bool col_in = cu < s.CW && gx < W && (!OFS || gx >= 0);
+      bm_keep_masks(col_in ? min(gx - minD, D - 1) - d16 + 1 : 0, m[u]);
+      if (OFS) {
+        // d below gx - minD - W + 1 meet a right column past the image
+        const int n_cut = gx - minD - W + 1 - d16;
+        if (col_in && n_cut > 0) bm_cut_low(n_cut, m[u]);
+      }
       cc[u] = min(cu, s.CW - 1);
       const V8* vp = (const V8*)(Vt + (size_t)cc[u] * s.DS);
       v[u][0] = vp[0];
@@ -337,11 +363,11 @@ __device__ __forceinline__ void bm_winner(const int (&key)[K],
   keep.ko = mine ? ko : keep.ko;
 }
 
-template <int K, bool PACK>
+template <int K, bool PACK, bool OFS>
 __global__ void __launch_bounds__(32 * BM_MAX_WARPS)
 bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
                    const uint8_t* __restrict__ rp, int H, int W, int D,
-                   int bs, int TY, int32_t* __restrict__ best_d_out,
+                   int minD_, int bs, int TY, int32_t* __restrict__ best_d_out,
                    int32_t* __restrict__ best_c_out,
                    int32_t* __restrict__ cm1_out,
                    int32_t* __restrict__ cp1_out,
@@ -363,13 +389,15 @@ bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
   const int r0 = y0 - w2;            // first staged row
   const int NR = y_end - y0 + bs - 1;
   const long long HW = (long long)H * W;
+  const int minD = OFS ? minD_ : 0;
 
   // V and the ring start as zeros (s.total is a multiple of 16)
   for (int i = t; i < (int)(s.total / 16); i += nt)
     ((uint4*)smem)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
 
-  // the ring slot of row r holds L from column gx0 and R from gx0 - (D - 1);
+  // the ring slot of row r holds L from column gx0 and R from
+  // gx0 - minD - (D - 1);
   // aL / aR: offset of those columns in the slot (row alignment varies)
   // a row outside the image is staged as zeros
   auto stage = [&](int r, bool issue, int& aL, int& aR) {
@@ -379,7 +407,7 @@ bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
     uint8_t* Rslot = Rs + (size_t)slot * s.RS;
     aL = bm_stage_row(Lslot, lp, HW, (long long)r * W + gx0, s.CW, t, nt,
                       issue && in);
-    aR = bm_stage_row(Rslot, rp, HW, (long long)r * W + gx0 - (D - 1),
+    aR = bm_stage_row(Rslot, rp, HW, (long long)r * W + gx0 - minD - (D - 1),
                       s.CW + D - 1, t, nt, issue && in);
     if (issue && !in) {
       for (int i = t; i < s.LS / 16; i += nt)
@@ -432,8 +460,8 @@ bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
       const uint8_t* Lo = Ls + (size_t)so * s.LS + aLo;
       const uint8_t* Ro = Rs + (size_t)so * s.RS;
       const int rq_n = aRn + D - 16 - d16, rq_o = aRo + D - 16 - d16;
-      bm_vertical(Vt, s, col0, cstep, Ln, Rn, rq_n, Lo, Ro, rq_o, gx0, W, D,
-                  d16);
+      bm_vertical<OFS>(Vt, s, col0, cstep, Ln, Rn, rq_n, Lo, Ro, rq_o, gx0, W,
+                       D, minD, d16);
     }
     __syncthreads();
 
@@ -478,52 +506,67 @@ bm_cost_wta_kernel(const uint8_t* __restrict__ lp,
   }
 }
 
-template <int K, bool PACK>
+template <int K, bool PACK, bool OFS>
 static int bm_launch(const void* lp, const void* rp, int H, int W, int D,
-                     int bs, int warps, int TY, int plan_smem, void* best_d,
-                     void* best_c, void* c_m1, void* c_p1, void* min_out,
-                     void* stream) {
+                     int minD, int bs, int warps, int TY, int plan_smem,
+                     void* best_d, void* best_c, void* c_m1, void* c_p1,
+                     void* min_out, void* stream) {
   const int TX = BM_PW * warps;
   const size_t smem = bm_layout(TX, D, bs, K).total;
   if (smem != (size_t)plan_smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      bm_cost_wta_kernel<K, PACK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bm_cost_wta_kernel<K, PACK, OFS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY);
-  bm_cost_wta_kernel<K, PACK><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)lp, (const uint8_t*)rp, H, W, D, bs, TY,
+  bm_cost_wta_kernel<K, PACK, OFS><<<grid, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)lp, (const uint8_t*)rp, H, W, D, minD, bs, TY,
       (int32_t*)best_d, (int32_t*)best_c, (int32_t*)c_m1, (int32_t*)c_p1,
       (int32_t*)min_out);
   return (int)cudaGetLastError();
 }
 
-// lp, rp: (H, W) uint8 prefiltered planes; outputs (H, W) int32 each.
+// The instantiation for k = ceil(D / 32), packed costs and minD != 0.
+template <bool OFS>
+static int bm_dispatch(int k, bool pack, const void* lp, const void* rp, int H,
+                       int W, int D, int minD, int bs, int warps, int TY,
+                       int smem, void* best_d, void* best_c, void* c_m1,
+                       void* c_p1, void* min_out, void* stream) {
+#define BM_ARGS lp, rp, H, W, D, minD, bs, warps, TY, smem, best_d, best_c, \
+                c_m1, c_p1, min_out, stream
+  if (k <= 1) return bm_launch<1, false, OFS>(BM_ARGS);
+  if (k <= 2)
+    return pack ? bm_launch<2, true, OFS>(BM_ARGS) : bm_launch<2, false, OFS>(BM_ARGS);
+  if (k <= 4)
+    return pack ? bm_launch<4, true, OFS>(BM_ARGS) : bm_launch<4, false, OFS>(BM_ARGS);
+  if (k <= 8)
+    return pack ? bm_launch<8, true, OFS>(BM_ARGS) : bm_launch<8, false, OFS>(BM_ARGS);
+  return pack ? bm_launch<12, true, OFS>(BM_ARGS) : bm_launch<12, false, OFS>(BM_ARGS);
+#undef BM_ARGS
+}
+
+// lp, rp: (H, W) uint8 prefiltered planes; outputs (H, W) int32 each, the
+// disparity indices of min_disparity minD (any int).
 // Requires 1 <= D <= 384, odd bs, bs^2 * 255 * 2^B < 2^31 (B = 8 bits for
 // D <= 256, else 9: bs <= 127) and a plan from
 // bm_plan: 1 <= warps <= BM_MAX_WARPS (BM_PW output columns each), TY >= 1
 // rows a block, and smem the plan's shared-memory bytes a block, which must
 // equal bm_layout's total.
 extern "C" int rtdm_bm_cost_wta(const void* lp, const void* rp, int H, int W,
-                                int D, int bs, void* best_d, void* best_c,
-                                void* c_m1, void* c_p1, void* min_out,
-                                int warps, int TY, int smem, void* stream) {
+                                int D, int bs, int minD, void* best_d,
+                                void* best_c, void* c_m1, void* c_p1,
+                                void* min_out, int warps, int TY, int smem,
+                                void* stream) {
   const long long key_max = (long long)bs * bs * 255 << (D > 256 ? 9 : 8);
   if (D < 1 || D > 384 || bs % 2 == 0 || key_max >= (1LL << 31) ||
       warps < 1 || warps > BM_MAX_WARPS || TY < 1)
     return (int)cudaErrorInvalidValue;
   const int k = (D + 31) / 32;
   const bool pack = bs * bs * 255 < 65536;
-#define BM_ARGS lp, rp, H, W, D, bs, warps, TY, smem, best_d, best_c, c_m1, \
-                c_p1, min_out, stream
-  if (k <= 1) return bm_launch<1, false>(BM_ARGS);
-  if (k <= 2)
-    return pack ? bm_launch<2, true>(BM_ARGS) : bm_launch<2, false>(BM_ARGS);
-  if (k <= 4)
-    return pack ? bm_launch<4, true>(BM_ARGS) : bm_launch<4, false>(BM_ARGS);
-  if (k <= 8)
-    return pack ? bm_launch<8, true>(BM_ARGS) : bm_launch<8, false>(BM_ARGS);
-  return pack ? bm_launch<12, true>(BM_ARGS) : bm_launch<12, false>(BM_ARGS);
+#define BM_ARGS lp, rp, H, W, D, minD, bs, warps, TY, smem, best_d, best_c, \
+                c_m1, c_p1, min_out, stream
+  if (minD != 0) return bm_dispatch<true>(k, pack, BM_ARGS);
+  return bm_dispatch<false>(k, pack, BM_ARGS);
 #undef BM_ARGS
 }
 

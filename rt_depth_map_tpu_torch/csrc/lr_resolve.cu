@@ -4,14 +4,17 @@
 //
 // Replaces rt_depth_map_tpu/ops/pallas/lr_resolve.py lr_resolve_pallas:
 //
-//   winner:    best[x2] = min over dd in [0, n_w) of key[x2 + dd]
-//                         where d_match[x2 + dd] == dd
+//   winner:    best[x2] = min over dd in [w_lo, w_lo + n_w) of key[x2 + dd]
+//                         where d_match[x2 + dd] == dd (w_lo = 0 in the
+//                         TPU kernel's contract; the checks start it at
+//                         min_disparity)
 //   disp2[x2]  = (best & (Dpow - 1)) + c0, or `invalid` without a candidate
 //   read-back: out_j[x] = disp2[x - rm_j[x]] when rm_j[x] is in
 //              [r_lo, r_lo + n_r) and x - rm_j[x] is in [0, W); else invalid
 //
 // The winner step is a scatter: every pixel x with dd = d_match[x] in range
-// does atomicMin(best[x - dd], key[x]) on its row, kept in shared memory.
+// and x - dd in [0, W) does atomicMin(best[x - dd], key[x]) on its row, kept
+// in shared memory.
 // Min does not depend on order, so the result is deterministic and
 // bit-exact with the shift-reduce of the TPU kernel. The TPU kernel's D-long
 // loop of lane rolls is gone: each pixel does O(1) work.
@@ -21,13 +24,18 @@
 // - rtdm_lr_resolve, the general one: d_match, key and one or two read-back
 //   planes, int32, as lr_resolve_pallas takes them;
 // - rtdm_lr_check_sgbm, the inline SGBM check (rt_depth_map_tpu/ops/sgbm.py
-//   _lr_check_sgbm): it reads the x16 disparity and the matcher's best and
-//   minS, builds the packed minS * 256 + best key on the fly, reads back at
-//   the floor and the ceiling of the disparity, and writes the checked
-//   int16 disparity (invalid only where both read-backs disagree);
+//   _lr_check_sgbm): it reads the x16 disparity and the matcher's best (a
+//   disparity index; best + minD the disparity) and minS, builds the packed
+//   minS * 256 + best key on the fly, reads back at the floor and the
+//   ceiling of the disparity, and writes the checked int16 disparity
+//   (invalid only where both read-backs disagree);
 // - rtdm_lr_check_bm, cv::validateDisparity (rt_depth_map_tpu/ops/bm.py
 //   _lr_check): the x16 disparity and the winner's cost, key
 //   cost * 8192 + d + 2048, one read-back at the rounded disparity.
+// Both checks take min_disparity minD: their windows start at minD and
+// their invalid value is (minD - 1) * 16. The BM key wraps where d + 2048
+// leaves [0, 8192) (minD < -127 or minD + D > 383) exactly as the
+// reference's int32 key and its floor-mod decode do: & 8191 is that mod.
 //
 // A thread keeps PX pixels of its row in registers from the loads to the
 // read-back (PX 1, 2, 4 or 8, a template parameter the host picks from the
@@ -53,7 +61,7 @@
 #define LR_SENT (-0x7fffffff - 1)
 
 struct LrParams {
-  int H, W, n_w, r_lo, n_r, dmask, c0, invalid;
+  int H, W, w_lo, n_w, r_lo, n_r, dmask, c0, invalid;
 };
 
 // The decoded winner of column x - r of the row, or invalid.
@@ -89,7 +97,8 @@ __global__ void __launch_bounds__(1024) lr_rows(Src src, LrParams p) {
     const int x = threadIdx.x + k * blockDim.x;
     if (live && x < p.W) {
       const int dd = px[k].dd, key = px[k].key;
-      if (key != LR_BIGKEY && dd >= 0 && dd < p.n_w && x - dd >= 0)
+      if (key != LR_BIGKEY && dd >= p.w_lo && dd < p.w_lo + p.n_w &&
+          x - dd >= 0 && x - dd < p.W)
         atomicMin(&row[x - dd], key);
     }
   }
@@ -130,7 +139,7 @@ struct SgbmSrc {
   const int16_t* __restrict__ disp;
   const int32_t* __restrict__ best;
   const int32_t* __restrict__ minS;
-  int minX1, width1, max_diff;
+  int minX1, width1, min_disp, max_diff;
   int16_t* __restrict__ out;
   struct Px {
     int d16, dd, key;
@@ -141,9 +150,10 @@ struct SgbmSrc {
     Px v{disp[(size_t)y * p.W + x], LR_SENT, LR_BIGKEY, j >= 0 && j < width1};
     if (v.cols) {
       const size_t i = (size_t)y * width1 + j;
-      v.dd = best[i];
+      const int b = best[i];
+      v.dd = b + min_disp;
       const int x2 = x - v.dd;
-      if (v.d16 != p.invalid && x2 >= 0 && x2 < p.W) v.key = lr_pack(minS[i], 256u, v.dd);
+      if (v.d16 != p.invalid && x2 >= 0 && x2 < p.W) v.key = lr_pack(minS[i], 256u, b);
     }
     return v;
   }
@@ -153,7 +163,8 @@ struct SgbmSrc {
     if (v.cols && v.d16 != p.invalid) {
       const int d_lo = v.d16 >> 4, d_hi = (v.d16 + 15) >> 4;
       const int a = lr_read(row, x, d_lo, p), b = lr_read(row, x, d_hi, p);
-      if (a >= 0 && abs(a - d_lo) > max_diff && b >= 0 && abs(b - d_hi) > max_diff)
+      if (a >= min_disp && abs(a - d_lo) > max_diff && b >= min_disp &&
+          abs(b - d_hi) > max_diff)
         o = p.invalid;
     }
     out[(size_t)y * p.W + x] = (int16_t)o;
@@ -219,38 +230,47 @@ static int lr_launch(const Src& src, const LrParams& p, int px, int rows,
 
 extern "C" int rtdm_lr_resolve(const void* d_match, const void* key,
                                const void* rm0, const void* rm1, int n_rb,
-                               int H, int W, int n_w, int r_lo, int n_r,
-                               int Dpow, int c0, int invalid, int px,
+                               int H, int W, int w_lo, int n_w, int r_lo,
+                               int n_r, int Dpow, int c0, int invalid, int px,
                                int rows, void* out, void* stream) {
   if (n_rb < 1 || n_rb > 2) return (int)cudaErrorInvalidValue;
   const GeneralSrc src{(const int32_t*)d_match, (const int32_t*)key,
                        (const int32_t*)rm0, (const int32_t*)rm1, n_rb,
                        (int32_t*)out};
-  return lr_launch(src, LrParams{H, W, n_w, r_lo, n_r, Dpow - 1, c0, invalid},
+  return lr_launch(src,
+                   LrParams{H, W, w_lo, n_w, r_lo, n_r, Dpow - 1, c0, invalid},
                    px, rows, stream);
 }
 
-// The SGBM check at min_disparity 0: invalid -16, c0 0, Dpow 256, the
-// winner over [0, D), read-backs over [-1, D + 1).
+// The SGBM check at min_disparity minD: invalid (minD - 1) * 16, c0 minD,
+// Dpow 256, the winner over [minD, minD + D), read-backs over
+// [minD - 1, minD + D + 1).
 extern "C" int rtdm_lr_check_sgbm(const void* disp, const void* best,
                                   const void* minS, int H, int W, int minX1,
-                                  int width1, int num_disp, int max_diff,
-                                  int px, int rows, void* out, void* stream) {
+                                  int width1, int num_disp, int min_disp,
+                                  int max_diff, int px, int rows, void* out,
+                                  void* stream) {
   const SgbmSrc src{(const int16_t*)disp, (const int32_t*)best,
-                    (const int32_t*)minS, minX1, width1, max_diff,
+                    (const int32_t*)minS, minX1, width1, min_disp, max_diff,
                     (int16_t*)out};
-  return lr_launch(src, LrParams{H, W, num_disp, -1, num_disp + 2, 255, 0, -16},
+  return lr_launch(src,
+                   LrParams{H, W, min_disp, num_disp, min_disp - 1, num_disp + 2,
+                            255, min_disp, (min_disp - 1) * 16},
                    px, rows, stream);
 }
 
-// The BM check at min_disparity 0: invalid -16, key cost * 8192 + d + 2048
-// (c0 -2048), the winner and the read-back over [0, D + 1).
+// The BM check at min_disparity minD: invalid (minD - 1) * 16, key
+// cost * 8192 + d + 2048 (c0 -2048), the winner and the read-back over
+// [minD, minD + D + 1).
 extern "C" int rtdm_lr_check_bm(const void* disp, const void* cost, int H,
-                                int W, int num_disp, int max_diff, int px,
-                                int rows, void* out, void* stream) {
+                                int W, int num_disp, int min_disp,
+                                int max_diff, int px, int rows, void* out,
+                                void* stream) {
   const BmSrc src{(const int16_t*)disp, (const int32_t*)cost, max_diff * 16,
                   (int16_t*)out};
-  return lr_launch(src, LrParams{H, W, num_disp + 1, 0, num_disp + 1, 8191, -2048, -16},
+  return lr_launch(src,
+                   LrParams{H, W, min_disp, num_disp + 1, min_disp, num_disp + 1,
+                            8191, -2048, (min_disp - 1) * 16},
                    px, rows, stream);
 }
 

@@ -3,15 +3,18 @@
 //
 // Replaces rt_depth_map_tpu/ops/pallas/sgm_cost.py:283
 // sgm_cost_volume_pallas, whose contract is rt_depth_map_tpu/ops/sgbm.py
-// sgbm_cost_volume:
+// sgbm_cost_volume at any min_disparity minD:
 //
-//   pix(y, x, d) = BT(sobel planes) + (BT(raw planes) >> 2), 0 where x - d
-//                  leaves the image
+//   pix(y, x, d) = BT(sobel planes) + (BT(raw planes) >> 2) of left column
+//                  x against right column x - minD - d, 0 where that
+//                  column leaves the image
 //   C(y, j, d)   = sum over |dy|, |dx| <= bs/2 of
 //                  pix(clamp(y + dy, 0, H-1), minX1 + clamp(j + dx, 0, W1-1), d)
 //
 // i.e. the window replicates at the edges of the cropped range
-// [minX1, minX1 + W1), not at the image's. Each image arrives as an (H, W, 8)
+// [minX1, minX1 + W1), not at the image's; minX1 = max(minD + D, 0) and
+// W1 = W + min(minD, 0) - minX1 keep every right column of that range
+// inside the image, so minD is only an offset of the right columns. Each image arrives as an (H, W, 8)
 // uint8 plane stack prepared by the wrapper: the clipped x-Sobel response,
 // its half-pixel min and max, the raw image, its half-pixel min and max, and
 // two zero bytes, so a pixel's planes are one 8-byte load.
@@ -122,7 +125,7 @@ struct ScShape {
 template <typename CT, int BS>
 __global__ void __launch_bounds__(SC_ND)
 sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
-                int H, int W, int D, int minX1, int W1,
+                int H, int W, int D, int minD, int minX1, int W1,
                 CT* __restrict__ out) {
   constexpr int W2 = ScShape<BS>::W2;
   constexpr int NE = ScShape<BS>::NE;
@@ -142,7 +145,7 @@ sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
   const int jl0 = max(jw0, 0);               // first left column held
   const int nl = min(j0 + SC_TX + W2, W1) - jl0;
   const int lx0 = minX1 + jl0;               // its image column
-  const int xr0 = lx0 - (dhi - 1);           // image column of right column 0
+  const int xr0 = lx0 - minD - (dhi - 1);    // image column of right column 0
   const int nr = nl + (dhi - dlo) - 1;
   const bool clamp = jw0 < 0 || j0 + SC_TX + W2 > W1;
   const int y0 = blockIdx.y * SC_R;
@@ -226,7 +229,7 @@ sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
 
 template <typename CT, int BS>
 static cudaError_t sc_launch_bs(const void* lpl, const void* rpl, int H, int W,
-                                int D, int minX1, int W1, void* out,
+                                int D, int minD, int minX1, int W1, void* out,
                                 cudaStream_t stream) {
   const size_t smem = ScShape<BS>::smem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -236,35 +239,41 @@ static cudaError_t sc_launch_bs(const void* lpl, const void* rpl, int H, int W,
   const dim3 grid((W1 + SC_TX - 1) / SC_TX, (H + SC_R - 1) / SC_R,
                   (D + SC_ND - 1) / SC_ND);
   sgm_cost_kernel<CT, BS><<<grid, D < SC_ND ? D : SC_ND, smem, stream>>>(
-      (const uint2*)lpl, (const uint2*)rpl, H, W, D, minX1, W1, (CT*)out);
+      (const uint2*)lpl, (const uint2*)rpl, H, W, D, minD, minX1, W1, (CT*)out);
   return cudaGetLastError();
 }
 
 template <typename CT>
 static cudaError_t sc_launch(const void* lpl, const void* rpl, int H, int W,
-                             int D, int bs, int minX1, int W1, void* out,
-                             cudaStream_t stream) {
+                             int D, int bs, int minD, int minX1, int W1,
+                             void* out, cudaStream_t stream) {
+#define SC_ARGS lpl, rpl, H, W, D, minD, minX1, W1, out, stream
   switch (bs) {
-    case 1: return sc_launch_bs<CT, 1>(lpl, rpl, H, W, D, minX1, W1, out, stream);
-    case 3: return sc_launch_bs<CT, 3>(lpl, rpl, H, W, D, minX1, W1, out, stream);
-    case 5: return sc_launch_bs<CT, 5>(lpl, rpl, H, W, D, minX1, W1, out, stream);
-    case 7: return sc_launch_bs<CT, 7>(lpl, rpl, H, W, D, minX1, W1, out, stream);
-    case 9: return sc_launch_bs<CT, 9>(lpl, rpl, H, W, D, minX1, W1, out, stream);
-    case 11: return sc_launch_bs<CT, 11>(lpl, rpl, H, W, D, minX1, W1, out, stream);
+    case 1: return sc_launch_bs<CT, 1>(SC_ARGS);
+    case 3: return sc_launch_bs<CT, 3>(SC_ARGS);
+    case 5: return sc_launch_bs<CT, 5>(SC_ARGS);
+    case 7: return sc_launch_bs<CT, 7>(SC_ARGS);
+    case 9: return sc_launch_bs<CT, 9>(SC_ARGS);
+    case 11: return sc_launch_bs<CT, 11>(SC_ARGS);
+#undef SC_ARGS
     default: return cudaErrorInvalidValue;
   }
 }
 
 // lpl, rpl: (H, W, 8) uint8 plane stacks (bytes 6 and 7 zero); out:
-// (H, W1, D) int16 (out_bytes 2) or int32 (out_bytes 4). Requires
-// 1 <= D <= 1024 and odd bs <= 11.
+// (H, W1, D) int16 (out_bytes 2) or int32 (out_bytes 4) over the columns
+// [minX1, minX1 + W1) at min_disparity minD. Requires 1 <= D <= 1024, odd
+// bs <= 11, and minX1 = max(minD + D, 0), W1 = W + min(minD, 0) - minX1 >= 1.
 extern "C" int rtdm_sgm_cost(const void* lpl, const void* rpl, int H, int W,
-                             int D, int bs, int minX1, int W1, int out_bytes,
-                             void* out, void* stream) {
+                             int D, int bs, int minD, int minX1, int W1,
+                             int out_bytes, void* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (minX1 != (minD + D > 0 ? minD + D : 0) ||
+      W1 != W + (minD < 0 ? minD : 0) - minX1 || W1 < 1)
+    return (int)cudaErrorInvalidValue;
   if (out_bytes == 2)
-    return (int)sc_launch<int16_t>(lpl, rpl, H, W, D, bs, minX1, W1, out, s);
-  return (int)sc_launch<int32_t>(lpl, rpl, H, W, D, bs, minX1, W1, out, s);
+    return (int)sc_launch<int16_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1, out, s);
+  return (int)sc_launch<int32_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1, out, s);
 }
 
 extern "C" const char* rtdm_error_string(int err) {

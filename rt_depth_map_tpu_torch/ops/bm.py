@@ -1,8 +1,9 @@
 """Konolige SAD block matcher (cv::StereoBM parity).
 
-Port of `rt_depth_map_tpu/ops/bm.py` `stereo_bm` for min_disparity = 0 at
+Port of `rt_depth_map_tpu/ops/bm.py` `stereo_bm` at any min_disparity, at
 strict shapes (GPU kernels need no pad-to-kernel-grid route). The cost and
-winner search run in K8 (`ops/cuda/bm_kernel.py`); the texture check,
+winner search run in K8 (`ops/cuda/bm_kernel.py`), which takes minD and
+returns disparity indices; the texture check,
 uniqueness test, subpixel step and the per-frame ROI mask are elementwise
 torch, with the ROI scalars left on the device; the left-right check is one launch of
 K6's BM entry (`ops/cuda/lr_resolve.py`), and the speckle filter runs on K2,
@@ -30,16 +31,11 @@ DISP_SCALE = 1 << DISP_SHIFT
 
 
 def lr_check(disp: torch.Tensor, cost: torch.Tensor, num_disp: int,
-             max_diff: int, plain: bool = False) -> torch.Tensor:
-    """cv::validateDisparity parity (ops/bm.py _lr_check, min_disparity 0)
-    on K6's BM entry: `lr_resolve_bm_plain`."""
+             max_diff: int, min_disp: int = 0, plain: bool = False) -> torch.Tensor:
+    """cv::validateDisparity parity (ops/bm.py _lr_check) on K6's BM entry:
+    `lr_resolve_bm_plain`."""
     return (lr_resolve_bm_plain if plain else lr_resolve_bm)(disp, cost, num_disp,
-                                                             max_diff)
-
-
-def _check_config(cfg: MatcherConfig) -> None:
-    if cfg.min_disparity != 0:
-        raise NotImplementedError("the port's BM supports min_disparity 0 only")
+                                                             max_diff, min_disp)
 
 
 def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
@@ -52,23 +48,24 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     ROI means the full frame. plain=True runs the kernels' plain versions;
     mark(name), when given, is called after each stage."""
     mark = mark or (lambda name: None)
-    _check_config(cfg)
     H, W = left.shape
     D = cfg.num_disparities
+    minD = cfg.min_disparity
     bs = cfg.block_size
     w2 = bs // 2
-    maxD = D - 1
-    invalid = -DISP_SCALE
+    maxD = minD + D - 1
+    invalid = (minD - 1) * DISP_SCALE
     dev = left.device
 
     lp = xsobel_prefilter(left, cfg.pre_filter_cap)
     rp = xsobel_prefilter(right, cfg.pre_filter_cap)
     wta = bm_cost_wta_plain if plain else bm_cost_wta
-    best_d, best_cost, c_m1, c_p1, min_out = wta(lp, rp, D, bs)
+    best_d, best_cost, c_m1, c_p1, min_out = wta(lp, rp, D, bs, minD)
 
     ys = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
     xs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-    valid = (ys >= w2) & (ys < H - w2) & (xs >= maxD + w2) & (xs < W - w2)
+    valid = ((ys >= w2) & (ys < H - w2) & (xs >= max(maxD, 0) + w2)
+             & (xs < W - w2))
 
     if roi1 is not None or roi2 is not None:
         def norm(r):
@@ -79,6 +76,7 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
 
         r1x, r1y, r1w, r1h = norm(roi1)
         r2x, r2y, r2w, r2h = norm(roi2)
+        # the unclamped maxD, as the reference
         rxmin = torch.maximum(r1x, r2x + maxD) + w2
         rxmax = torch.minimum(r1x + r1w, r2x + r2w) - w2
         rymin = torch.maximum(r1y, r2y) + w2
@@ -102,12 +100,13 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
         torch.sign(num) * torch.div(num.abs(), denom.clamp(min=1),
                                     rounding_mode="floor"),
         0)
-    packed = (best_d * 256 + delta + 15) >> 4
+    # ((best_d + minD) * 256 + delta + 15) >> 4, minD folded into the constant
+    packed = (best_d * 256 + delta + (minD * 256 + 15)) >> 4
     disp = torch.where(valid & tex_ok & ~uniq_bad, packed, invalid).to(torch.int16)
     mark("BM prefilter, K8, texture, uniqueness, subpixel")
 
     if cfg.disp12_max_diff >= 0:
-        disp = lr_check(disp, best_cost, D, cfg.disp12_max_diff, plain=plain)
+        disp = lr_check(disp, best_cost, D, cfg.disp12_max_diff, minD, plain=plain)
     mark("LR check (K6)")
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
         disp = filter_speckles(disp, invalid, cfg.speckle_window_size,

@@ -30,6 +30,7 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import vol_transpose  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.wls import tridiag_smooth  # noqa: F401
 
 #: (wrapper, csrc file, TPU kernels it replaces) for every kernel of the port
 KERNELS = (
@@ -71,6 +72,9 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
     (speckle_apply, "rt_depth_map_tpu_torch/csrc/histogram.cu",
      "rt_depth_map_tpu/ops/pallas/histogram.py:198"),
+    # no TPU kernel: the reference runs these solves as lax.scans under XLA
+    (tridiag_smooth, "rt_depth_map_tpu_torch/csrc/wls.cu",
+     "rt_depth_map_tpu/ops/wls.py:78 (lax.scan, no Pallas kernel)"),
 )
 
 

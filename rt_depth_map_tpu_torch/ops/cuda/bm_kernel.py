@@ -2,10 +2,13 @@
 
 Replaces `rt_depth_map_tpu/ops/pallas/bm_kernel.py` `bm_cost_wta`. The port's
 contract holds on every pixel and is the XLA formulation's
-(`rt_depth_map_tpu/ops/bm.py` `_cost_volume`): bs x bs window sums
-zero-padded at the border, |L - R| = 0 where x - d < 0. (The Pallas kernel
-zero-fills the left border differently, but only outside the region
-`stereo_bm` keeps.)
+(`rt_depth_map_tpu/ops/bm.py` `_cost_volume`) at any min_disparity minD:
+disparity index i is the disparity dd = minD + i, bs x bs window sums
+zero-padded at the border, |L(x) - R(x - dd)| taken as 0 where x - dd
+leaves [0, W) (at minD < 0 the right border falls inside the valid region:
+there the term is 0, not |L - 0|). The outputs and the tie rule (the
+largest index) stay in index space. (The Pallas kernel zero-fills the left
+border differently, but only outside the region `stereo_bm` keeps.)
 
 Its bound on the H100 is integer instructions (`PERF.md` gives its time
 beside that bound). A block owns a tile of output columns (32 a warp) and a
@@ -71,23 +74,28 @@ def box_sum_2d(x: torch.Tensor, size: int) -> torch.Tensor:
 
 
 def cost_volume(lp: torch.Tensor, rp: torch.Tensor, D: int,
-                bs: int) -> torch.Tensor:
-    """(D, H, W) int32 windowed SAD, the XLA formulation of ops/bm.py."""
+                bs: int, min_disp: int = 0) -> torch.Tensor:
+    """(D, H, W) int32 windowed SAD, the XLA formulation of ops/bm.py: index
+    i holds disparity min_disp + i, |L(x) - R(x - dd)| where 0 <= x - dd < W
+    and 0 elsewhere."""
     H, W = lp.shape
     l32 = lp.to(torch.int32)
     r32 = rp.to(torch.int32)
     ad = torch.zeros((D, H, W), dtype=torch.int32, device=lp.device)
-    for d in range(D):
-        if d < W:
-            ad[d, :, d:] = (l32[:, d:] - r32[:, : W - d]).abs()
+    for i in range(D):
+        dd = min_disp + i
+        lo, hi = max(dd, 0), min(W, W + dd)  # x with 0 <= x - dd < W
+        if lo < hi:
+            ad[i, :, lo:hi] = (l32[:, lo:hi] - r32[:, lo - dd: hi - dd]).abs()
     return box_sum_2d(ad, bs)
 
 
 def bm_cost_wta_plain(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
-                      block_size: int):
-    """(best_d, best_cost, c_m1, c_p1, min_outside), each (H, W) int32."""
+                      block_size: int, min_disp: int = 0):
+    """(best_d, best_cost, c_m1, c_p1, min_outside), each (H, W) int32;
+    best_d is the disparity index (best_d + min_disp the disparity)."""
     D = num_disp
-    cost = cost_volume(lp, rp, D, block_size)
+    cost = cost_volume(lp, rp, D, block_size, min_disp)
     di = torch.arange(D, dtype=torch.int32, device=lp.device)[:, None, None]
     # the reference's key (ops/bm.py): ties to the largest d, any D
     kmin = torch.amin(cost * D + (D - 1 - di), dim=0)
@@ -186,17 +194,18 @@ def _fn():
     fn = lib.rtdm_bm_cost_wta
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, I, I, I, I, P, P, P, P, P, I, I, I, P]
+        fn.argtypes = [P, P, I, I, I, I, I, P, P, P, P, P, I, I, I, P]
         fn.restype = I
     return lib, fn
 
 
 def bm_cost_wta(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
-                block_size: int):
-    """(best_d, best_cost, c_m1, c_p1, min_outside) each (H, W) int32 for
-    min_disparity = 0. lp/rp: (H, W) uint8 prefiltered planes."""
+                block_size: int, min_disp: int = 0):
+    """(best_d, best_cost, c_m1, c_p1, min_outside) each (H, W) int32 at
+    min_disparity `min_disp` (best_d an index into [0, D)). lp/rp: (H, W)
+    uint8 prefiltered planes."""
     if lp.device.type == "cpu":
-        return bm_cost_wta_plain(lp, rp, num_disp, block_size)
+        return bm_cost_wta_plain(lp, rp, num_disp, block_size, min_disp)
     if lp.device.type != "cuda":
         raise ValueError(f"bm_cost_wta: unsupported device {lp.device}")
     H, W = lp.shape
@@ -210,7 +219,7 @@ def bm_cost_wta(lp: torch.Tensor, rp: torch.Tensor, num_disp: int,
         lp.device).shared_memory_per_multiprocessor)
     lib, fn = _fn()
     with torch.cuda.device(lp.device):
-        err = fn(lp.data_ptr(), rp.data_ptr(), H, W, D, bs,
+        err = fn(lp.data_ptr(), rp.data_ptr(), H, W, D, bs, int(min_disp),
                  *[o.data_ptr() for o in outs], plan.warps, plan.ty, plan.smem,
                  _build.stream_of(lp))
     bm_cost_wta.launches += 1

@@ -2,12 +2,15 @@
 
 Replaces `rt_depth_map_tpu/ops/pallas/sgm_cost.py` `sgm_cost_volume_pallas`,
 whose contract is the XLA formulation `rt_depth_map_tpu/ops/sgbm.py`
-`sgbm_cost_volume` (min_disparity 0): the Birchfield-Tomasi cost of the
-clipped x-Sobel planes plus a quarter of the raw planes' BT cost, summed over
-a block_size x block_size window that replicates at the edges of the cropped
-column range [minX1, W) and of the rows. The volume is (H, W1, D), D
-contiguous, int16 when `5 * bs^2 * pix_max` fits (the JAX rule of
-`stereo_sgbm`), else int32.
+`sgbm_cost_volume` at any min_disparity minD: the Birchfield-Tomasi cost of
+the clipped x-Sobel planes plus a quarter of the raw planes' BT cost, left
+column minX1 + j against right column minX1 + j - minD - i for disparity
+index i, summed over a block_size x block_size window that replicates at
+the edges of the cropped column range [minX1, minX1 + W1) and of the rows
+(`cost_geometry`: minX1 = max(minD + D, 0), W1 = W + min(minD, 0) - minX1;
+every right column of that range lies inside the image). The volume is
+(H, W1, D), D contiguous, int16 when `5 * bs^2 * pix_max` fits (the JAX
+rule of `stereo_sgbm`), else int32.
 
 The preprocessing (`sgbm_preprocess`, `halfpix`) is elementwise torch, as
 the reference leaves it to XLA: `plane_stack` packs each image's six planes
@@ -25,7 +28,6 @@ about once an output; see the source for the design.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from rt_depth_map_tpu_torch.ops.cuda import _build
 
@@ -99,11 +101,11 @@ def plane_stack(img: torch.Tensor, pre_filter_cap: int) -> torch.Tensor:
     return torch.stack(planes + [zero, zero], dim=-1)
 
 
-def _shifted(p: torch.Tensor, D: int) -> torch.Tensor:
-    """(H, W, D) with [y, x, d] = p[y, x - d], 0 where x - d < 0."""
-    H, W = p.shape
-    padded = F.pad(p, (D - 1, 0))  # column x of p at D - 1 + x
-    return padded.unfold(1, D, 1).flip(-1)  # window at x: columns x-D+1..x
+def cost_geometry(W: int, D: int, min_disp: int = 0):
+    """(minX1, W1): the first column and the width of the range the cost
+    volume covers (rt_depth_map_tpu/ops/sgbm.py:133-135)."""
+    minX1 = max(min_disp + D, 0)
+    return minX1, W + min(min_disp, 0) - minX1
 
 
 def _bt(u, u0, u1, v, v0, v1):
@@ -123,25 +125,29 @@ def _window_sum_replicate(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
 
 def sgm_cost_volume_plain(lpl: torch.Tensor, rpl: torch.Tensor,
                           num_disp: int, block_size: int,
-                          dtype: torch.dtype = torch.int32):
+                          dtype: torch.dtype = torch.int32, min_disp: int = 0):
     """(C, minX1, W1) from the two `plane_stack`s: the XLA formulation of
-    ops/sgbm.py `sgbm_cost_volume` for min_disparity 0, C (H, W1, D) in
-    `dtype`."""
+    ops/sgbm.py `sgbm_cost_volume` at min_disparity `min_disp`, C (H, W1, D)
+    in `dtype`."""
     D = num_disp
-    H, W = lpl.shape[:2]
-    minX1, W1 = D, W - D
-    lp = lpl.to(torch.int32).unbind(-1)
+    W = lpl.shape[1]
+    minX1, W1 = cost_geometry(W, D, min_disp)
+    lp = lpl[:, minX1: minX1 + W1].to(torch.int32).unbind(-1)
     rp = rpl.to(torch.int32).unbind(-1)
-    xs = torch.arange(W, device=lpl.device)[:, None]
-    inb = (xs - torch.arange(D, device=lpl.device)[None, :]) >= 0  # (W, D)
+    # the right column of left column minX1 + j at disparity index i; the
+    # cropped range keeps every one inside the image, where the reference's
+    # "0 outside the image" never applies
+    xr = (torch.arange(minX1, minX1 + W1, device=lpl.device)[:, None] - min_disp
+          - torch.arange(D, device=lpl.device)[None, :])  # (W1, D)
+    if W1 > 0 and (int(xr.min()) < 0 or int(xr.max()) >= W):
+        raise AssertionError("sgm_cost_volume_plain: right column outside the image")
 
     def bt(l3, r3):
         u, u0, u1 = (a[..., None] for a in l3)
-        v, v0, v1 = (_shifted(a, D) for a in r3)
-        return torch.where(inb, _bt(u, u0, u1, v, v0, v1), 0)
+        v, v0, v1 = (a[:, xr] for a in r3)
+        return _bt(u, u0, u1, v, v0, v1)
 
-    pix = bt(lp[0:3], rp[0:3]) + (bt(lp[3:6], rp[3:6]) >> 2)  # (H, W, D)
-    pix = pix[:, minX1:].contiguous()
+    pix = bt(lp[0:3], rp[0:3]) + (bt(lp[3:6], rp[3:6]) >> 2)  # (H, W1, D)
     C = _window_sum_replicate(_window_sum_replicate(pix, block_size, 1),
                               block_size, 0)
     return C.to(dtype), minX1, W1
@@ -152,35 +158,37 @@ def _fn():
     fn = lib.rtdm_sgm_cost
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, I, I, I, I, I, I, I, P, P]
+        fn.argtypes = [P, P, I, I, I, I, I, I, I, I, P, P]
         fn.restype = I
     return lib, fn
 
 
 def sgm_cost_volume(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
-                    block_size: int, dtype: torch.dtype = torch.int32):
+                    block_size: int, dtype: torch.dtype = torch.int32,
+                    min_disp: int = 0):
     """(C, minX1, W1) from the (H, W, 8) uint8 `plane_stack`s of the left
-    and right rectified images, min_disparity 0: C is (H, W1, D) in `dtype`
-    (int16 or int32; the caller picks `volume_dtype`), W1 = W - D,
-    minX1 = D."""
+    and right rectified images at min_disparity `min_disp`: C is (H, W1, D)
+    in `dtype` (int16 or int32; the caller picks `volume_dtype`), (minX1,
+    W1) = `cost_geometry(W, D, min_disp)` (D and W - D at min_disp 0)."""
     if lpl.device.type == "cpu":
-        return sgm_cost_volume_plain(lpl, rpl, num_disp, block_size, dtype)
+        return sgm_cost_volume_plain(lpl, rpl, num_disp, block_size, dtype,
+                                     min_disp)
     if lpl.device.type != "cuda":
         raise ValueError(f"sgm_cost_volume: unsupported device {lpl.device}")
     H, W = lpl.shape[:2]
-    D, bs = int(num_disp), int(block_size)
-    if not (1 <= D < W and D <= 1024) or bs % 2 == 0 or bs > 11:
-        raise ValueError(f"sgm_cost_volume: unsupported D={D}, block_size={bs} "
-                         f"at width {W}")
+    D, bs, minD = int(num_disp), int(block_size), int(min_disp)
+    minX1, W1 = cost_geometry(W, D, minD)
+    if not (1 <= D <= 1024 and W1 >= 1) or bs % 2 == 0 or bs > 11:
+        raise ValueError(f"sgm_cost_volume: unsupported D={D}, min_disp={minD}, "
+                         f"block_size={bs} at width {W}")
     if dtype not in (torch.int16, torch.int32):
         raise ValueError(f"sgm_cost_volume: dtype must be int16 or int32, got {dtype}")
     _build.require(lpl, "lpl", torch.uint8, (H, W, 8))
     _build.require(rpl, "rpl", torch.uint8, (H, W, 8))
-    minX1, W1 = D, W - D
     out = torch.empty((H, W1, D), dtype=dtype, device=lpl.device)
     lib, fn = _fn()
     with torch.cuda.device(lpl.device):
-        err = fn(lpl.data_ptr(), rpl.data_ptr(), H, W, D, bs, minX1, W1,
+        err = fn(lpl.data_ptr(), rpl.data_ptr(), H, W, D, bs, minD, minX1, W1,
                  out.element_size(), out.data_ptr(), _build.stream_of(lpl))
     sgm_cost_volume.launches += 1
     _build.check(lib, err, "sgm_cost_volume")

@@ -1,10 +1,13 @@
 """Semi-global matching (cv::StereoSGBM parity), 8, 5 or 4 paths.
 
-Port of `rt_depth_map_tpu/ops/sgbm.py` `stereo_sgbm` for min_disparity 0
-at strict shapes (the TPU's pad-to-kernel-grid route is not needed on the
-GPU). After the elementwise plane preprocessing and K3's cost volume
-(H, W1, D), the aggregation takes the reference's route for the shape
-(`ops/sgbm.py:529-532, 585-612`):
+Port of `rt_depth_map_tpu/ops/sgbm.py` `stereo_sgbm` at any min_disparity
+minD, at strict shapes (the TPU's pad-to-kernel-grid route is not needed on
+the GPU). After the elementwise plane preprocessing and K3's cost volume
+(H, W1, D) over the columns [minX1, minX1 + W1) (minD is a column offset of
+the right image there), the aggregation takes the reference's route for
+the shape (`ops/sgbm.py:529-532, 585-612`; the reference runs its XLA
+formulation at minD != 0, which every route equals bit for bit; the
+aggregation kernels do not depend on minD):
 
   bidir, 8 paths with W1 % 8 == 0 and H % 16 == 0: K12 to x-major
       (W1, H, D) -> K4 horizontal paths Sh -> K12 back to (H, W1, D) -> K5
@@ -16,8 +19,10 @@ GPU). After the elementwise plane preprocessing and K3's cost volume
       partial -> K9d the three top-down paths + partial, winner-take-all;
   4 paths: K9a left-to-right -> K9d top-down + partial, winner-take-all;
 
-then the inline left-right check (one launch of K6's SGBM entry) and the
-speckle filter (K2, K7 with the size decision, K2, the apply). Every volume keeps D contiguous. The bidir route's transposes swap the
+then the disparity (index + minD, x16), the inline left-right check (one
+launch of K6's SGBM entry) and the speckle filter (K2, K7 with the size
+decision, K2, the apply), both with the invalid value (minD - 1) * 16.
+Every volume keeps D contiguous. The bidir route's transposes swap the
 two pixel axes, as the TPU's K12 turns (H, D, W1) into (W1, D, H) and back
 around its K4; the chained route scans the row-major volume directly (the
 TPU transposes there only to put D on its sublanes).
@@ -38,6 +43,7 @@ from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (
     lr_resolve_sgbm_plain,
 )
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (  # noqa: F401
+    cost_geometry,
     halfpix,
     plane_stack,
     sgbm_preprocess,
@@ -80,16 +86,17 @@ def _no_mark(name: str) -> None:
 
 def sgbm_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int,
                      block_size: int, pre_filter_cap: int = 0,
-                     plain: bool = False, mark: Callable[[str], None] = _no_mark):
+                     plain: bool = False, mark: Callable[[str], None] = _no_mark,
+                     min_disp: int = 0):
     """(C, minX1, W1) of two (H, W) uint8 rectified gray planes
-    (ops/sgbm.py `sgbm_cost_volume`, min_disparity 0): the elementwise
-    preprocessing, then K3. C is (H, W1, D), int16 where it provably fits."""
+    (ops/sgbm.py `sgbm_cost_volume`): the elementwise preprocessing, then
+    K3. C is (H, W1, D), int16 where it provably fits."""
     lpl = plane_stack(left, pre_filter_cap)
     rpl = plane_stack(right, pre_filter_cap)
     mark("SGM preprocess: plane_stack x2")
     cost = sgm_cost_volume_plain if plain else sgm_cost_volume
     return cost(lpl, rpl, num_disp, block_size,
-                volume_dtype(block_size, pre_filter_cap))
+                volume_dtype(block_size, pre_filter_cap), min_disp)
 
 
 # the reference's direction lists (ops/sgbm.py:234-235), a pixel (y, x)
@@ -128,25 +135,26 @@ def swap_pixel_axes(V: torch.Tensor, plain: bool = False) -> torch.Tensor:
 
 def lr_check_sgbm(disp: torch.Tensor, best: torch.Tensor, minS: torch.Tensor,
                   minX1: int, width1: int, num_disp: int, max_diff: int,
-                  plain: bool = False) -> torch.Tensor:
-    """The inline SGBM left-right check (ops/sgbm.py `_lr_check_sgbm`,
-    min_disparity 0) on K6's SGBM entry: `lr_resolve_sgbm_plain`."""
+                  min_disp: int = 0, plain: bool = False) -> torch.Tensor:
+    """The inline SGBM left-right check (ops/sgbm.py `_lr_check_sgbm`) on
+    K6's SGBM entry: `lr_resolve_sgbm_plain`."""
     fn = lr_resolve_sgbm_plain if plain else lr_resolve_sgbm
-    return fn(disp, best, minS, minX1, width1, num_disp, max_diff)
+    return fn(disp, best, minS, minX1, width1, num_disp, max_diff, min_disp)
 
 
 def check_config(cfg: MatcherConfig, W: int) -> None:
     """Raise for what the port's SGM does not run at image width W."""
-    if cfg.min_disparity != 0:
-        raise NotImplementedError("the port's SGM supports min_disparity 0 only")
-    if not 0 < cfg.num_disparities < W:
-        raise ValueError(f"num_disparities={cfg.num_disparities} needs "
-                         f"0 < D < W={W}")
+    D = cfg.num_disparities
+    if not 0 < D < W or cost_geometry(W, D, cfg.min_disparity)[1] < 1:
+        raise ValueError(f"num_disparities={D}, min_disparity={cfg.min_disparity} "
+                         f"leave no column to match at W={W}")
 
 
-def uses_bidir(num_paths: int, H: int, W: int, D: int) -> bool:
-    """The fused bidirectional route's gate (ops/sgbm.py:529-532)."""
-    return path_count(num_paths) == 8 and (W - D) % 8 == 0 and H % 16 == 0
+def uses_bidir(num_paths: int, H: int, W: int, D: int, min_disp: int = 0) -> bool:
+    """The fused bidirectional route's gate (ops/sgbm.py:529-532) on the
+    cost volume's width W1."""
+    W1 = cost_geometry(W, D, min_disp)[1]
+    return path_count(num_paths) == 8 and W1 % 8 == 0 and H % 16 == 0
 
 
 def aggregate_bidir(C: torch.Tensor, p1: int, p2: int, uniqueness_ratio: int,
@@ -203,15 +211,16 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     H, W = left.shape
     check_config(cfg, W)
     D = cfg.num_disparities
-    invalid = -DISP_SCALE
+    minD = cfg.min_disparity
+    invalid = (minD - 1) * DISP_SCALE
     p1 = cfg.p1
     p2 = max(cfg.p2, p1 + 1)
 
     C, minX1, width1 = sgbm_cost_volume(left, right, D, cfg.block_size,
                                         cfg.pre_filter_cap, plain=plain,
-                                        mark=mark)
+                                        mark=mark, min_disp=minD)
     mark("K3 cost volume")
-    if uses_bidir(cfg.num_paths, H, W, D):
+    if uses_bidir(cfg.num_paths, H, W, D, minD):
         best, minS, dval, uniq = aggregate_bidir(C, p1, p2, cfg.uniqueness_ratio,
                                                  plain, mark)
     else:
@@ -221,10 +230,12 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     del C
 
     disp = torch.full((H, W), invalid, dtype=torch.int16, device=left.device)
+    if minD:
+        dval = dval + minD * DISP_SCALE
     disp[:, minX1: minX1 + width1] = torch.where(uniq != 0, invalid, dval).to(torch.int16)
     if cfg.disp12_max_diff >= 0:
         disp = lr_check_sgbm(disp, best, minS, minX1, width1, D,
-                             cfg.disp12_max_diff, plain=plain)
+                             cfg.disp12_max_diff, minD, plain=plain)
     mark("LR check (K6)")
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
         disp = filter_speckles(disp, invalid, cfg.speckle_window_size,

@@ -17,10 +17,15 @@ The matcher is the configured kind, as in the reference's frame program:
   bm:  block matching inside the boxes' ROI (K8 cost + winner, K6 LR check);
 
 each followed by the speckle filter (K2 labels, K7 counts, K2 decision).
+With `enable_post_filter` (the reference's ENABLE_POST_FILTER), a right-view
+matcher of the same kind runs over the mirrored range on (right, left),
+without ROI, LR check or speckle filter, and the WLS filter (`ops/wls.py`:
+the LR confidence, then the smoother kernel's row and column solves)
+refines the left disparity into `filtered_disparity`.
 
 PyTorch runs eagerly, so there is no compile step; the CUDA kernels build at
-their first launch. Not ported yet: batch > 1, run_preloaded, the WLS post
-filter and show_disparity_value.
+their first launch. Not ported yet: batch > 1, run_preloaded and
+show_disparity_value.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from rt_depth_map_tpu_torch.ops.reproject import (
 )
 from rt_depth_map_tpu_torch.ops.sgbm import check_config as check_sgm_config
 from rt_depth_map_tpu_torch.ops.sgbm import stereo_sgbm
+from rt_depth_map_tpu_torch.ops.wls import right_matcher_config, wls_filter
 from rt_depth_map_tpu_torch.pipeline.stats import ExecTimeStats
 from rt_depth_map_tpu_torch.sources import make_source
 
@@ -64,6 +70,8 @@ class FrameResult:
     count: np.ndarray  # (K,) int32 valid pixels per box
     mask: np.ndarray  # (Hr, Wr) uint8 filtered object mask
     rgb_rect: np.ndarray  # (Hr, Wr, 3) uint8 rectified left view
+    #: WLS-refined disparity (ENABLE_POST_FILTER), None unless enabled
+    filtered_disparity: Optional[np.ndarray] = None
 
     @property
     def has_objects(self) -> bool:
@@ -94,7 +102,7 @@ def _default_q(width: int, height: int) -> np.ndarray:
 
 
 def _to_host(out: dict) -> dict:
-    return {k: v.cpu().numpy() for k, v in out.items()}
+    return {k: v.cpu().numpy() for k, v in out.items() if v is not None}
 
 
 class Engine:
@@ -115,9 +123,9 @@ class Engine:
             raise RuntimeError("Engine(device='cuda'): CUDA is not available")
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
-        if cfg.batch != 1 or cfg.enable_post_filter or cfg.show_disparity_value:
+        if cfg.batch != 1 or cfg.show_disparity_value:
             raise NotImplementedError(
-                "the port runs batch=1 without WLS or show_disparity_value; "
+                "the port runs batch=1 without show_disparity_value; "
                 "see ROADMAP.md")
         self.cfg = cfg
         self.device = device
@@ -152,6 +160,8 @@ class Engine:
             if mcfg.block_size == 13:
                 mcfg = mcfg.replace(block_size=5)  # SGBM reference block size
             check_sgm_config(mcfg, self.roi[2])
+            if cfg.enable_post_filter:
+                check_sgm_config(right_matcher_config(mcfg), self.roi[2])
         self.matcher_config = mcfg
 
         hsv = cfg.hsv_range()
@@ -204,6 +214,16 @@ class Engine:
             disp = stereo_bm(lrect, rrect, st.matcher,
                              roi1=matching_region(boxes), roi2=None,
                              plain=plain, mark=mark)
+        filtered = None
+        if cfg.enable_post_filter:
+            # ENABLE_POST_FILTER (estimator.cpp:59-71): the right-view
+            # matcher, then the confidence-weighted WLS refinement
+            rcfg = right_matcher_config(st.matcher)
+            rmark = lambda name: mark(f"right matcher ({name})")  # noqa: E731
+            match = stereo_sgbm if st.matcher.kind == "sgm" else stereo_bm
+            disp_r = match(rrect, lrect, rcfg, plain=plain, mark=rmark)
+            filtered, _ = wls_filter(disp, disp_r, lrect, st.matcher, plain=plain)
+            mark("WLS: confidence + FGS")
 
         dint = disparity_fixed_to_float(disp)
         xyz = reproject_to_3d(dint, st.Q, st.matcher.min_disparity, True)
@@ -212,7 +232,8 @@ class Engine:
                                              cfg.calibration_unit_mm)
         mark("calc_depth")
         return dict(disparity=disp, boxes=boxes, depth_cm=depth_cm,
-                    mean_z=mean_z, count=count, mask=filt, rgb_rect=rgbr)
+                    mean_z=mean_z, count=count, mask=filt, rgb_rect=rgbr,
+                    filtered_disparity=filtered)
 
     def _dispatch(self, left: np.ndarray, right: np.ndarray) -> dict:
         """H2D + the frame program for one decoded pair (device outputs)."""

@@ -1,6 +1,8 @@
 """Port parity: BM matcher. The prefilter and stereo_bm against the JAX XLA
-path (rt_depth_map_tpu/ops/bm.py); the plain K8 (cost + winner) and K6 (LR
-resolve) against the Pallas kernels themselves in interpret mode, as
+path (rt_depth_map_tpu/ops/bm.py), at min_disparity 0 and at -(D - 1), -8
+and +8 (with the plain K8 volume and the LR check there, and the LR key's
+wrap below -127); the plain K8 (cost + winner) and K6 (LR resolve) against
+the Pallas kernels themselves in interpret mode, as
 tests/test_pallas_kernels.py runs them. Integer, bit-exact."""
 
 import dataclasses
@@ -81,16 +83,17 @@ def test_bm_cost_wta_plain_matches_pallas_in_valid_region():
         np.testing.assert_array_equal(g[keep], r[keep], err_msg=name)
 
 
-def _check_plain_against_xla_volume(D, bs, H, W, shift):
+def _check_plain_against_xla_volume(D, bs, H, W, shift, min_disp=0):
     """bm_cost_wta_plain's five outputs against the XLA cost volume of
     ops/bm.py and its winner (the reference's key cost * D + (D - 1 - d),
-    ties to the largest d), on every pixel; returns the winners."""
+    ties to the largest index d), on every pixel; returns the winners."""
     lp, rp = _prefiltered(5, H, W, shift)
-    cost = np.asarray(jbm._cost_volume(jnp.asarray(lp), jnp.asarray(rp), D, 0, bs))
+    cost = np.asarray(jbm._cost_volume(jnp.asarray(lp), jnp.asarray(rp), D,
+                                       min_disp, bs))
     di = np.arange(D)[:, None, None]
     kmin = (cost * D + (D - 1 - di)).min(0)
     best = D - 1 - kmin % D
-    got = [a.numpy() for a in bm_cost_wta_plain(t(lp), t(rp), D, bs)]
+    got = [a.numpy() for a in bm_cost_wta_plain(t(lp), t(rp), D, bs, min_disp)]
     np.testing.assert_array_equal(got[0], best)
     np.testing.assert_array_equal(got[1], kmin // D)
     at = lambda d: np.take_along_axis(cost, np.clip(d, 0, D - 1)[None], 0)[0]  # noqa: E731
@@ -106,6 +109,16 @@ def test_bm_cost_wta_plain_matches_xla_volume_everywhere(D, bs):
     """The port's contract holds on every pixel: the XLA cost volume of
     ops/bm.py and its winner, ties to the largest d."""
     _check_plain_against_xla_volume(D, bs, 20, 72, 4)
+
+
+@pytest.mark.parametrize("min_disp", [-23, -8, 8, -300])
+def test_bm_cost_wta_plain_min_disparity_matches_xla(min_disp):
+    """The plain K8 at min_disparity != 0 (index i is disparity minD + i)
+    on every pixel: at minD < 0 the right border x - dd >= W lies inside
+    the frame, where the reference's term is 0, not |L - 0|; at -300 no
+    right column of any disparity lies in the 72-wide image (every cost
+    0)."""
+    _check_plain_against_xla_volume(24, 5, 20, 72, 4, min_disp)
 
 
 @pytest.mark.parametrize("D,bs", [(288, 9), (320, 5)])
@@ -175,6 +188,37 @@ def test_lr_check_bm_plain_matches_jax(D):
         assert (ref != disp).any() and (ref != -16).any()
 
 
+#: (D, min_disparity): -(D - 1), -8, +8; -140 and 376 put d + 2048 outside
+#: [0, 8192), where the packed key wraps as the reference's int32 arithmetic
+LR_MIN_DISP_CASES = [(16, -15), (16, -8), (16, 8), (128, -127), (16, -140),
+                     (16, 376)]
+
+
+@pytest.mark.parametrize("D,min_disp", LR_MIN_DISP_CASES)
+def test_lr_check_bm_min_disparity_matches_jax(D, min_disp):
+    """The plain BM check and its entry on a CPU tensor at min_disparity
+    != 0 against the reference's `_lr_check`: winner and read-back windows
+    over [minD, minD + D], the invalid value (minD - 1) * 16, and where
+    d + 2048 leaves [0, 8192) (minD < -127, minD + D > 383) the wrapped key
+    and its floor-mod decode."""
+    H, W = 20, D + abs(min_disp) + 60
+    rng = np.random.default_rng(D + min_disp + 1000)
+    invalid = (min_disp - 1) * 16
+    disp = rng.integers(min_disp * 16 - 16, (min_disp + D) * 16,
+                        size=(H, W)).astype(np.int16)
+    disp[rng.random((H, W)) < 0.2] = invalid
+    cost = rng.integers(0, 60000, size=(H, W)).astype(np.int32)
+    j_lr = jax.jit(jbm._lr_check, static_argnums=(2, 3, 4))
+    for max_diff in (0, 1, 3):
+        ref = np.asarray(j_lr(jnp.asarray(disp), jnp.asarray(cost), min_disp, D,
+                              max_diff))
+        got = tbm.lr_check(t(disp), t(cost), D, max_diff, min_disp, plain=True)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert torch.equal(lr_resolve_bm(t(disp), t(cost), D, max_diff, min_disp),
+                           got)
+        assert (ref != disp).any() and (ref != invalid).any()
+
+
 @pytest.mark.parametrize("W", [1, 61, 1280, 1920, 3840, 4096, 4097, 8192, 8193])
 def test_lr_plan(W):
     """K6's launch plan: whole warps of at most 1024 threads covering the
@@ -221,6 +265,34 @@ def test_stereo_bm_matches_jax(roi, p):
     assert (ref != -16).any()  # the case keeps some valid matches
 
 
+@pytest.mark.parametrize("i", range(3))
+@pytest.mark.parametrize("roi", ["none", "box"])
+def test_stereo_bm_min_disparity_matches_jax(roi, i):
+    """stereo_bm at min_disparity -(D - 1), -8 and +8, with and without a
+    ROI, the LR check on (speckle filter off: the speckle case is
+    test_stereo_bm_refuses_speckle_and_min_disparity's), bit-exact against
+    the reference's XLA path. The pair's true disparity lies inside each
+    range (the pair swapped at minD < 0)."""
+    D, bs = 16, 9
+    min_disp = (-(D - 1), -8, 8)[i]
+    true_d = {-(D - 1): -6, -8: -4, 8: 14}[min_disp]
+    H, W = 32, 112
+    left, right = stereo_pair(21 + i, H, W, abs(true_d))
+    if true_d < 0:
+        left, right = right, left
+    cfg = MatcherConfig(kind="bm", num_disparities=D, block_size=bs,
+                        speckle_window_size=0, min_disparity=min_disp)
+    assert cfg.disp12_max_diff >= 0
+    r = ROIS[roi]
+    ref = np.asarray(jbm.stereo_bm(jnp.asarray(left), jnp.asarray(right),
+                                   jax_config(cfg, backend="xla"), roi1=r))
+    got = tbm.stereo_bm(t(left), t(right), cfg, roi1=r)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    valid = ref != (min_disp - 1) * 16
+    assert valid.mean() > (0.2 if r is None else 0.1)
+    assert abs(np.median(ref[valid]) / 16 - true_d) < 1
+
+
 @pytest.mark.parametrize("D", [288, 320])
 def test_stereo_bm_matches_jax_above_256(D):
     """D above 256 (the default BM matcher on a 1920-wide camera runs at
@@ -251,19 +323,22 @@ def test_stereo_bm_matches_numpy_golden(H, W, D, bs):
 
 
 def test_stereo_bm_refuses_speckle_and_min_disparity():
-    """min_disparity != 0 is still refused; the speckle filter now runs
-    (tests/test_torch_speckle.py holds it against JAX)."""
+    """Neither is refused any more: the speckle filter runs (also
+    tests/test_torch_speckle.py) and so does min_disparity != 0 (also
+    test_stereo_bm_min_disparity_matches_jax), here at +2 with the speckle
+    filter on its invalid value (minD - 1) * 16; both against the JAX
+    package, bit-exact."""
     left, right = stereo_pair(1, 16, 64, 3)
-    cfg = MatcherConfig(num_disparities=16)
-    assert cfg.speckle_window_size > 0
-    with_speckle = tbm.stereo_bm(t(left), t(right), cfg)
     # the reference as one compiled program (no eager per-op dispatch)
-    ref = jax.jit(jbm.stereo_bm, static_argnums=2)(
-        jnp.asarray(left), jnp.asarray(right), jax_config(cfg, backend="xla"))
-    np.testing.assert_array_equal(with_speckle.numpy(), np.asarray(ref))
-    with pytest.raises(NotImplementedError):
-        tbm.stereo_bm(t(left), t(right), MatcherConfig(
-            num_disparities=16, speckle_window_size=0, min_disparity=2))
+    j_bm = jax.jit(jbm.stereo_bm, static_argnums=2)
+    for min_disp in (0, 2):
+        cfg = MatcherConfig(num_disparities=16, min_disparity=min_disp)
+        assert cfg.speckle_window_size > 0
+        got = tbm.stereo_bm(t(left), t(right), cfg)
+        ref = j_bm(jnp.asarray(left), jnp.asarray(right),
+                   jax_config(cfg, backend="xla"))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        assert (np.asarray(ref) != (min_disp - 1) * 16).any()
 
 
 @pytest.mark.parametrize("bs", [5, 13, 21])

@@ -1,10 +1,11 @@
 """Port parity: the single-frame Engine of rt_depth_map_tpu_torch against the
 JAX Engine, frame by frame, on a non-identity rectification: the BM matcher
 with the speckle filter off, and 8- and 5-path SGM with the speckle filter
-on.
+on; SGM-8 and BM also with the WLS post-filter on.
 Integer fields are exact; depth_cm and mean_z agree to rtol 1e-5 (float32
-sums in another order). The port's configs build the JAX ones field by
-field."""
+sums in another order); filtered_disparity is within 1 (1/16 px) on at
+least 99.9% of the pixels and within 16 everywhere. The port's configs
+build the JAX ones field by field."""
 
 import dataclasses
 import os
@@ -175,6 +176,34 @@ def test_engine_bm_scaled_above_256_matches_jax():
     assert valid.any() and (got.disparity[valid] < 32 * 16).any()
 
 
+@pytest.mark.parametrize("kind", ["sgm", "bm"])
+def test_engine_post_filter_matches_jax(kind):
+    """enable_post_filter: the right matcher over the mirrored range
+    (min_disparity -31, no ROI, LR check or speckle filter; SGM on its
+    chained route, the crop leaving 90 rows) and the WLS filter, against
+    the JAX Engine (measured: filtered_disparity equal on every pixel)."""
+    cfg = (_sgm_cfg(8) if kind == "sgm" else _cfg()).replace(enable_post_filter=True)
+    rect = _rectification()
+    jeng = JEngine(jax_config(cfg), rectification=rect, source=_jsource())
+    teng = Engine(cfg, rectification=rect, source=_source(), device="cpu")
+    left, right, _, _ = _source().render(1)
+    ref = jeng.process_pair(left, right)
+    reset_launch_counts()
+    got = teng.process_pair(left, right)
+    assert all(w.launches == 0 for w, _, _ in KERNELS)
+    _assert_same(ref, got, f"{kind} post-filter frame")
+    assert got.filtered_disparity.dtype == np.int16
+    assert got.filtered_disparity.shape == got.disparity.shape
+    err = np.abs(got.filtered_disparity.astype(np.int32)
+                 - ref.filtered_disparity.astype(np.int32))
+    assert (err <= 1).mean() >= 0.999 and err.max() <= 16
+    # the filter fills the invalid pixels and keeps the valid ones close
+    valid = got.disparity != -16
+    assert (~valid).any() and valid.mean() > 0.2
+    assert np.median(np.abs(got.filtered_disparity[valid].astype(np.int32)
+                            - got.disparity[valid])) <= 16
+
+
 def test_engine_runs_plain_versions_on_cpu(engines):
     _, teng = engines
     reset_launch_counts()
@@ -214,8 +243,10 @@ def test_engine_cuda_device_raises_without_cuda():
 
 
 def test_engine_refuses_unported_configs():
+    """batch > 1 and show_disparity_value are not ported yet (the WLS post
+    filter is: test_engine_post_filter_matches_jax)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(_cfg().replace(enable_post_filter=True), device="cpu")
+        Engine(_cfg().replace(show_disparity_value=True), device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(_cfg().replace(batch=2), device="cpu")
 

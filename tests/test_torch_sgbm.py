@@ -1,6 +1,8 @@
 """Port parity: the SGM matcher. The elementwise preprocessing, the cost
 volume, the path sums and the whole `stereo_sgbm` (8, 5 and 4 paths, on
-both 8-path routes) against the JAX XLA path (rt_depth_map_tpu/ops/sgbm.py);
+both 8-path routes; at min_disparity 0 and at -(D - 1), -8 and +8, with the
+cost volume and the LR check there too) against the JAX XLA path
+(rt_depth_map_tpu/ops/sgbm.py);
 the plain K3, K4 and K5 against the Pallas kernels themselves in interpret
 mode, as tests/test_sgm_bidir.py runs them (the chained passes K9a-K9d and
 K11: tests/test_torch_sgm_hdw.py). Integer, bit-exact."""
@@ -196,19 +198,21 @@ def test_stereo_sgbm_path_counts_match_jax(num_paths):
     assert (ref != -16).sum() > H * (W - D) // 4
 
 
-def _lr_sgbm_inputs(seed, H, W, D):
+def _lr_sgbm_inputs(seed, H, W, D, min_disp=0):
     """(disp, best, minS) as the matcher hands them to the inline LR check:
     best over [0, D) and minS (negative too: the carries start at zero) on
-    the W - D computed columns, the x16 disparity with its subpixel step
-    and invalid pixels, and -16 left of the computed range."""
+    the W1 computed columns from minX1, the x16 disparity (best + min_disp)
+    * 16 with its subpixel step and invalid pixels, and the invalid value
+    (min_disp - 1) * 16 outside the computed range."""
     rng = np.random.default_rng(seed)
-    W1 = W - D
+    minX1, W1 = tsg.cost_geometry(W, D, min_disp)
+    invalid = (min_disp - 1) * 16
     best = rng.integers(0, D, size=(H, W1)).astype(np.int32)
     minS = rng.integers(-2000, 60000, size=(H, W1)).astype(np.int32)
-    dval = best * 16 + rng.integers(-8, 9, size=(H, W1))
-    dval[rng.random((H, W1)) < 0.15] = -16
-    disp = np.full((H, W), -16, np.int16)
-    disp[:, D:] = dval
+    dval = (best + min_disp) * 16 + rng.integers(-8, 9, size=(H, W1))
+    dval[rng.random((H, W1)) < 0.15] = invalid
+    disp = np.full((H, W), invalid, np.int16)
+    disp[:, minX1: minX1 + W1] = dval
     return disp, best, minS
 
 
@@ -229,6 +233,95 @@ def test_lr_check_sgbm_plain_matches_jax(D):
         assert torch.equal(lr_resolve_sgbm(t(disp), t(best), t(minS), D, W - D, D,
                                            max_diff), got)
         assert (ref != disp).any() and (ref != -16).any()
+
+
+#: the min_disparity cases: -(D - 1) (the WLS right matcher's mirrored
+#: range), -8 and +8
+def _min_disps(D):
+    return (-(D - 1), -8, 8)
+
+
+@pytest.mark.parametrize("i", range(3))
+@pytest.mark.parametrize("H,W,D,bs,cap", [(20, 96, 32, 5, 0), (13, 70, 16, 3, 63)])
+def test_cost_volume_min_disparity_matches_xla(H, W, D, bs, cap, i):
+    """K3's plain version at min_disparity != 0: the geometry (minX1, W1)
+    and the volume against the reference's `sgbm_cost_volume`."""
+    min_disp = _min_disps(D)[i]
+    left, right = stereo_pair(H * W + i, H, W, D // 4)
+    C, minX1, W1 = j_sgbm_cost_volume(jnp.asarray(left), jnp.asarray(right),
+                                      D, bs, min_disp, cap)
+    got, gx, gw = tsg.sgbm_cost_volume(t(left), t(right), D, bs, cap,
+                                       min_disp=min_disp)
+    assert (gx, gw) == (int(minX1), int(W1)) == tsg.cost_geometry(W, D, min_disp)
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), np.asarray(C))
+
+
+def test_route_gate_reads_the_volume_width():
+    """The bidir gate tests W1 % 8, which differs from (W - D) % 8 at
+    min_disparity > 0: W = 160, D = 32 gives W1 = 128 at 0, 125 at +3, 128
+    at -31."""
+    assert tsg.uses_bidir(8, 32, 160, 32)
+    assert not tsg.uses_bidir(8, 32, 160, 32, 3)
+    assert tsg.uses_bidir(8, 32, 160, 32, -31)
+    with pytest.raises(ValueError):
+        tsg.check_config(MatcherConfig(kind="sgm", num_disparities=32,
+                                       min_disparity=130), 160)
+
+
+#: (H, W, D, paths): 8 paths on the bidir route (H % 16 == 0, W1 % 8 == 0 at
+#: every case's min_disparity) and on the chained one (H % 16 != 0), 5
+#: paths (cv2 MODE_SGBM) and the causal 4
+MIN_DISP_SHAPES = [(32, 192, 64, 8), (37, 200, 48, 8), (32, 160, 32, 5),
+                   (32, 160, 32, 4)]
+
+
+@pytest.mark.parametrize("i", range(3))
+@pytest.mark.parametrize("H,W,D,paths", MIN_DISP_SHAPES)
+def test_stereo_sgbm_min_disparity_matches_jax(H, W, D, paths, i):
+    """stereo_sgbm at min_disparity -(D - 1), -8 and +8 with the default
+    checks (uniqueness, LR check, speckle filter), bit-exact against the
+    reference's XLA path (the only one it runs there). The pair's true
+    disparity lies inside each range: the pair swapped (a negative
+    disparity) at minD < 0, shifted past minD at minD > 0."""
+    min_disp = _min_disps(D)[i]
+    true_d = {-(D - 1): -(D // 3), -8: -4, 8: D // 3 + 8}[min_disp]
+    left, right = stereo_pair(H + D + i, H, W, abs(true_d))
+    if true_d < 0:
+        left, right = right, left
+    cfg = MatcherConfig(kind="sgm", num_disparities=D, block_size=5,
+                        pre_filter_cap=0, num_paths=paths, min_disparity=min_disp)
+    assert cfg.speckle_window_size > 0 and cfg.disp12_max_diff >= 0
+    assert tsg.uses_bidir(paths, H, W, D, min_disp) == (paths == 8 and H % 16 == 0)
+    ref = np.asarray(j_stereo_sgbm(jnp.asarray(left), jnp.asarray(right),
+                                   jax_config(cfg, backend="xla")))
+    got = tsg.stereo_sgbm(t(left), t(right), cfg)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    valid = ref != (min_disp - 1) * 16
+    assert valid.mean() > 0.3
+    assert abs(np.median(ref[valid]) / 16 - true_d) < 1
+
+
+@pytest.mark.parametrize("i", range(3))
+@pytest.mark.parametrize("D", [64, 128])
+def test_lr_check_sgbm_min_disparity_matches_jax(D, i):
+    """The plain SGBM check and its entry on a CPU tensor at min_disparity
+    != 0 against the reference's `_lr_check_sgbm`: winner windows from minD,
+    c0 = minD, the invalid value (minD - 1) * 16 (which the reference's
+    `d2 >= min_disp` tests see at minD > 0)."""
+    min_disp = _min_disps(D)[i]
+    H, W = 24, D + 120
+    disp, best, minS = _lr_sgbm_inputs(D + i, H, W, D, min_disp)
+    minX1, W1 = tsg.cost_geometry(W, D, min_disp)
+    j_lr = jax.jit(jsg._lr_check_sgbm, static_argnums=(3, 4, 5, 6, 7))
+    for max_diff in (0, 1, 3):
+        ref = np.asarray(j_lr(jnp.asarray(disp), jnp.asarray(best),
+                              jnp.asarray(minS), minX1, W1, min_disp, D, max_diff))
+        got = tsg.lr_check_sgbm(t(disp), t(best), t(minS), minX1, W1, D, max_diff,
+                                min_disp, plain=True)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        assert torch.equal(lr_resolve_sgbm(t(disp), t(best), t(minS), minX1, W1, D,
+                                           max_diff, min_disp), got)
+        assert (ref != disp).any() and (ref != (min_disp - 1) * 16).any()
 
 
 def test_kernel_wrappers_run_plain_on_cpu():

@@ -1,7 +1,8 @@
 """K4 and K3 on the card: the horizontal SGM paths (`csrc/sgm_horiz.cu`, both
 chains meeting in the middle on a ring of asynchronous copies) and the cost
 volume (`csrc/sgm_cost.cu`, packed 16x2 BT costs, row staging with
-cp.async), each against its plain version, bit for bit. Every test but the
+cp.async; also at min_disparity != 0), each against its plain version, bit
+for bit. Every test but the
 numpy emulation of K3's packed arithmetic needs a CUDA device and skips
 without one; the file imports no JAX, so it also runs on a machine with the
 card (whose Python has no JAX, hence no conftest):
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
+    cost_geometry,
     plane_stack,
     sgm_cost_volume,
     sgm_cost_volume_plain,
@@ -138,3 +140,22 @@ def test_cost_volume_shapes(H, W1):
     for bs in (5, 11):
         got = sgm_cost_volume(lpl, rpl, D, bs, torch.int32)[0]
         assert torch.equal(got, sgm_cost_volume_plain(lpl, rpl, D, bs, torch.int32)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bs", [5, 11])
+@pytest.mark.parametrize("D", [16, 128, 256])
+@pytest.mark.parametrize("which", ["-(D-1)", "-8", "+8", "+16"])
+def test_cost_volume_min_disparity(which, D, bs):
+    """K3 at min_disparity != 0: the right columns offset by -minD over the
+    cropped range (minX1, W1) = cost_geometry; 75 + 1 output columns with a
+    ragged last tile, a short last stripe, two disparity blocks at D=256."""
+    dev = cuda_or_skip()
+    min_disp = {"-(D-1)": -(D - 1), "-8": -8, "+8": 8, "+16": 16}[which]
+    H = 70
+    W = D + abs(min_disp) + 76
+    lpl, rpl = _stacks(bs * 1000 + D + min_disp, H, W, dev)
+    got = sgm_cost_volume(lpl, rpl, D, bs, torch.int16, min_disp)
+    ref = sgm_cost_volume_plain(lpl, rpl, D, bs, torch.int16, min_disp)
+    assert got[1:] == ref[1:] == cost_geometry(W, D, min_disp)
+    assert torch.equal(got[0], ref[0])

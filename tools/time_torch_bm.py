@@ -124,7 +124,7 @@ def _caller(torch, lib, fn, lp, rp, d, warps, ty, tx, what):
     smem = bm_smem(tx, d, BS)
 
     def call():
-        err = fn(lp.data_ptr(), rp.data_ptr(), H, W, d, BS,
+        err = fn(lp.data_ptr(), rp.data_ptr(), H, W, d, BS, 0,
                  *[o.data_ptr() for o in outs], warps, ty, smem, _build.stream_of(lp))
         _build.check(lib, err, what)
 
@@ -229,7 +229,7 @@ def _ablate(root: str) -> dict:
     libs = tt.build_ablations(
         "bm_kernel", [[("bm_kernel.cu", old, new) for old, new in subs]
                       for _, subs, *_ in ABLATIONS],
-        "rtdm_bm_cost_wta", [P, P, I, I, I, I, P, P, P, P, P, I, I, I, P])
+        "rtdm_bm_cost_wta", [P, P, I, I, I, I, I, P, P, P, P, P, I, I, I, P])
     w, h, d, what = CALLS[0]
     _, _, lp, rp = frames(w, h)
     plan = _plan(torch, h, w, d)

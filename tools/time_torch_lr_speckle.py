@@ -186,7 +186,7 @@ def _ablate(root: str) -> dict:
     out = {"root": root, "card": cs._card(), "K6 lr_resolve_sgbm": {},
            "K7 speckle_decision": {}}
     lr_libs = _builds("lr_resolve", LR_ABLATIONS, "rtdm_lr_check_sgbm",
-                      [P, P, P] + [I] * 8 + [P, P])
+                      [P, P, P] + [I] * 9 + [P, P])
     h_libs = _builds("histogram", HIST_ABLATIONS, "rtdm_speckle_decision",
                      [P, P, I, I, I, P, P])
 
@@ -207,7 +207,7 @@ def _ablate(root: str) -> dict:
 
             def call(lib=lib, fn=fn, o=o, px=px, rows=rows, what=what):
                 err = fn(disp.data_ptr(), best.data_ptr(), minS.data_ptr(), H, W,
-                         minX1, width1, D, md, px, rows, o.data_ptr(),
+                         minX1, width1, D, 0, md, px, rows, o.data_ptr(),
                          _build.stream_of(disp))
                 _build.check(lib, err, what)
 

@@ -14,6 +14,8 @@ rectified synthetic frames:
 
 - K2 on the 1280x720 frame mask (four 8-connected fields), as
   `connected_components_bbox` calls it;
+- K3 (`sgm_cost_volume`, min_disparity 0) at 1280x720 D=128 and at the
+  1920x1080 D=256 stretch point;
 - K5 (`sgm_vert_wta`) on the 1280x720 D=128 volume and its horizontal sum;
 - K9c (`sgm_vert_pass`, top-down + the horizontal partial) and K9d
   (`sgm_final_wta`: bottom-up on K9c's sum, the 8-path finish; top-down on
@@ -68,8 +70,10 @@ def _child(root: str) -> dict:
         rr = remap_bilinear(rgb_to_gray(right), st.right, plain=True)
         m = st.matcher
         pc = m.pre_filter_cap
-        C = sgm_cost_volume(sg.plane_stack(lr, pc), sg.plane_stack(rr, pc), d,
-                            cs.BS, sg.volume_dtype(cs.BS, pc))[0]
+        lpl, rpl = sg.plane_stack(lr, pc), sg.plane_stack(rr, pc)
+        dt = sg.volume_dtype(cs.BS, pc)
+        time(f"K3 {w}x{h} D={d}", lambda: sgm_cost_volume(lpl, rpl, d, cs.BS, dt))
+        C = sgm_cost_volume(lpl, rpl, d, cs.BS, dt)[0]
         return eng, left, right, C, m.p1, max(m.p2, m.p1 + 1), m.uniqueness_ratio
 
     eng, left, right, C, p1, p2, ur = frames(cs.W, cs.H, cs.D)
