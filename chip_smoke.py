@@ -140,6 +140,13 @@ ENGINE_FRAMES = 4  # frames of each checked engine run
 POST_FRAMES = 2  # frames of each checked post-filter run (two matchers' plain programs)
 STRETCH_FRAMES = 2  # frames of the checked stretch run (its plain program is slow)
 TIMED_FRAMES = 30  # frames of the timed engine run
+CLI_FRAMES = 30  # frames of each checked CLI run (phase 11)
+PRELOAD_FRAMES = 120  # frames of the CLI's run and run_preloaded rates
+BATCH = 4  # rigs of the pipelined batch mode (BASELINE.md: 4x 720p pairs)
+BATCH_STEPS = 1  # checked steps of each batch run (4 plain frames each)
+BATCH_TIMED_STEPS = 20  # timed steps of each batch run
+#: seconds a phase 11 step may take before the run fails (a hang)
+CLI_DEADLINE, BATCH_DEADLINE = 300, 300
 DEV = "cuda"
 
 #: H100 SXM device memory bytes/s (NVIDIA data sheet)
@@ -359,9 +366,10 @@ def _rectification(w, h):
         image_size=(w, h))
 
 
-def _source(w, h, ring=0, scene="default"):
-    """The synthetic pair of every phase; another scene family (no
-    "default") places its own objects."""
+def _source(w, h, ring=0, scene="default", seed=11):
+    """The synthetic pair of every phase (another seed: another rig's
+    texture under the same objects); another scene family (no "default")
+    places its own objects."""
     from rt_depth_map_tpu_torch.sources import SyntheticStereoSource
     from rt_depth_map_tpu_torch.sources.synthetic import SyntheticObject
 
@@ -377,7 +385,7 @@ def _source(w, h, ring=0, scene="default"):
             (620, 330, 260, 200, 80.0, 0.0, 1.0),
             (960, 160, 200, 160, 110.0, -1.5, 0.0))
     ]
-    src = SyntheticStereoSource(w, h, seed=11, ring=ring, scene=scene,
+    src = SyntheticStereoSource(w, h, seed=seed, ring=ring, scene=scene,
                                 objects=objects if scene == "default" else None)
     src.rectified = False  # the engine applies the rectification maps
     return src
@@ -562,6 +570,439 @@ def _device_busy(fn, frames=5):
     dev_us = sum(getattr(e, "self_device_time_total", None)
                  or getattr(e, "self_cuda_time_total", 0.0) for e in events)
     return dev_us / 1e3 / frames, wall, sum(e.count for e in events) / frames
+
+
+@contextlib.contextmanager
+def _deadline(seconds: float, what: str):
+    """A step that outlasts `seconds` (a kernel that hangs) ends the run
+    with exit code 1 and every thread's traceback on stderr, instead of
+    stalling it."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(seconds, exit=True)
+    try:
+        yield
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    print(f"{what}: within its {seconds:.0f} s deadline", flush=True)
+
+
+@contextlib.contextmanager
+def _streams_seen():
+    """While inside, records the CUDA stream of every kernel launch by the
+    wrappers' modules: {module name: set of stream handles}."""
+    from rt_depth_map_tpu_torch.ops.cuda import _build
+
+    seen = {}
+    stream_of = _build.stream_of
+
+    def recording(t):
+        handle = stream_of(t)
+        seen.setdefault(sys._getframe(1).f_globals["__name__"].rsplit(".", 1)[-1],
+                        set()).add(handle)
+        return handle
+
+    _build.stream_of = recording
+    try:
+        yield seen
+    finally:
+        _build.stream_of = stream_of
+
+
+def _host_syncs(fn):
+    """The sites at which fn() made the host wait for the device, by
+    torch.cuda.set_sync_debug_mode("warn"), after a call to warm up (kernel
+    builds, first uploads): each the innermost frame of the port (or of
+    this script) on the stack of the warning, with the warned line."""
+    import os
+    import traceback
+    import warnings
+
+    import torch
+
+    fn()
+    _sync()
+    sites = set()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]  # not this frame
+                if "rt_depth_map_tpu_torch" in f.filename
+                or f.filename.endswith("chip_smoke.py")]
+        where = ours[-1] if ours else None
+        sites.add(f"{os.path.relpath(where.filename)}:{where.lineno} -> "
+                  f"{os.path.basename(filename)}:{lineno}" if where
+                  else f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    _sync()
+    return sorted(sites)
+
+
+def _write_calibration(directory, w, h):
+    """intrinsics.yml / extrinsics.yml of a non-identity w x h rig with the
+    port's write_filestorage (distortion on both cameras, a small relative
+    rotation, a 4.8-unit baseline along x); the ROIs intersect to (8, 12,
+    w - 16, h - 16), which keeps 8-path SGM at 1280x720 on the bidir route
+    (ROI height % 16 == 0, W1 % 8 == 0)."""
+    import os
+
+    from rt_depth_map_tpu_torch.calib import write_filestorage
+    from rt_depth_map_tpu_torch.calib.rectify import rodrigues_to_matrix
+
+    def camera(f, cx, cy):
+        return np.array([[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]])
+
+    intr = os.path.join(directory, "intrinsics.yml")
+    extr = os.path.join(directory, "extrinsics.yml")
+    write_filestorage(intr, {
+        "M1": camera(0.9 * w, w / 2 + 1.5, h / 2 - 0.7),
+        "D1": np.array([[-0.05, 0.012, 0.001, -0.0005, 0.0]]),
+        "M2": camera(0.9 * w + 2.0, w / 2 - 1.0, h / 2 + 0.4),
+        "D2": np.array([[-0.04, 0.009, -0.0007, 0.0004, 0.0]]),
+        "Width": w, "Height": h})
+    write_filestorage(extr, {
+        "R": rodrigues_to_matrix(np.array([0.002, -0.004, 0.001])),
+        "T": np.array([[-4.8], [0.02], [0.01]]),
+        "ROI1": [8, 12, w - 16, h - 16], "ROI2": [4, 8, w - 12, h - 12]})
+    return intr, extr
+
+
+def _fps_of(report: str) -> float:
+    """The pipelined throughput of an ExecTimeStats report."""
+    for ln in report.splitlines():
+        if "pipelined throughput" in ln:
+            return float(ln.split(":")[1].split()[0])
+    raise AssertionError(f"no pipelined throughput in the report: {report[-500:]}")
+
+
+def _run_cli(argv, what):
+    """cli.main(argv) in this process with the counts set to 0 just before
+    and every plain version guarded; (stdout, stderr, launches)."""
+    import io
+
+    from rt_depth_map_tpu_torch import cli
+    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    out, err = io.StringIO(), io.StringIO()
+    with _deadline(CLI_DEADLINE, f"phase 11 {what}"):
+        with _no_plain_on_card(), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            reset_launch_counts()
+            rc = cli.main(argv)
+            launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
+    if rc != 0:
+        raise AssertionError(f"phase 11 {what}: rc {rc}: {err.getvalue()[-2000:]}")
+    for ln in err.getvalue().splitlines():
+        if ln.startswith(("rt-depth-map-torch:", "built the kernels", "processed",
+                          "intrinsics resolution", "  pipelined throughput")):
+            print(f"phase 11 {what}: {ln.strip()}", flush=True)
+    return out.getvalue(), err.getvalue(), launches
+
+
+def _cli_labels_match_plain(argv, out, what, frames, check):
+    """Each printed frame's labels (`--print-depth`) against the labels of
+    `frame_program(plain=True)` on the same pair, by an engine the CLI's
+    own `make_engine` builds from the same arguments (the same
+    RectificationResult, configuration and source)."""
+    import torch
+
+    from rt_depth_map_tpu_torch import cli
+    from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
+
+    lines = {}
+    for ln in out.splitlines():
+        if ln.startswith("frame "):
+            i, txt = ln[len("frame "):].split(": ", 1)
+            lines[int(i)] = txt
+    if sorted(lines) != list(range(frames)):
+        raise AssertionError(f"{what}: printed frames {sorted(lines)}")
+    eng = cli.make_engine(cli.build_parser().parse_args(argv))
+    src = eng.source
+    for i in sorted(set(check) & set(lines)):
+        lf, rf, _, _ = src.render(i % src.ring if src.ring else i)
+        ref = FrameResult(**_to_host(eng.frame_program(
+            torch.from_numpy(lf).to(DEV), torch.from_numpy(rf).to(DEV), plain=True)))
+        txt = ", ".join(f"({x},{y}) {t}" for x, y, t in ref.labels()) or "no objects"
+        if lines[i] != txt:
+            raise AssertionError(f"{what} frame {i}: printed {lines[i]!r}, "
+                                 f"the plain program gives {txt!r}")
+        print(f"{what} frame {i}: labels equal the plain program's: {txt}",
+              flush=True)
+    if not any("disparity = " in t for t in lines.values()):
+        raise AssertionError(f"{what}: no label shows a disparity")
+    return eng
+
+
+def _trace_overlap(fn):
+    """Kernel intervals of one fn() call from a torch.profiler trace:
+    (kernels, streams, ms during which kernels of two or more streams ran
+    at once, pairs of cooperative kernels (K2, the vertical kernel) on two
+    streams that overlap in time, cooperative kernels)."""
+    import json as _json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        _sync()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = _json.load(f)["traceEvents"]
+    ks = [(e["ts"], e["ts"] + e["dur"], e["args"].get("stream"), e["name"])
+          for e in events if e.get("cat") == "kernel" and "dur" in e]
+    # sweep the starts and ends: time with kernels of 2+ streams running
+    edges = sorted([(a, 1, st) for a, _, st, _ in ks] + [(b, -1, st) for _, b, st, _ in ks],
+                   key=lambda e: e[:2])
+    running, busy, shared_us, last = {}, 0, 0.0, None
+    for t, step, st in edges:
+        if last is not None and busy >= 2:
+            shared_us += t - last
+        running[st] = running.get(st, 0) + step
+        busy = sum(1 for v in running.values() if v > 0)
+        last = t
+    coop = [k for k in ks if "cc_propagate" in k[3] or "sgm_vert3" in k[3]]
+    pairs = sum(1 for i, a in enumerate(coop) for b in coop[i + 1:]
+                if a[2] != b[2] and a[0] < b[1] and b[0] < a[1])
+    return len(ks), len({k[2] for k in ks}), shared_us / 1e3, pairs, len(coop)
+
+
+def _coop_streams(card):
+    """K2 (a connected-components call) and the vertical kernel (K5) on
+    BATCH streams at once, issued back to back so that the device holds
+    several of them (the batch mode's host-bound frames never do): each
+    result equals the same call on one stream, none hangs, and the trace
+    shows whether the cooperative grids overlapped."""
+    import torch
+
+    from rt_depth_map_tpu_torch.ops.cc import connected_components_bbox
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta
+
+    what = f"phase 11 cooperative kernels on {BATCH} streams"
+    g = torch.Generator(device=DEV).manual_seed(0)
+    mask = torch.rand((H, W), device=DEV, generator=g) < 0.45
+    C = torch.randint(0, 1024, (H, W - D, D), dtype=torch.int16, device=DEV,
+                      generator=g)
+    Sh = torch.randint(0, 1 << 16, (H, W - D, D), dtype=torch.int32, device=DEV,
+                       generator=g)
+
+    def call():
+        return connected_components_bbox(mask, 8) + sgm_vert_wta(C, Sh, 600, 2400, 10)
+
+    ref = call()
+    streams = [torch.cuda.Stream() for _ in range(BATCH)]
+
+    def burst():
+        main = torch.cuda.current_stream()
+        outs = []
+        for s in streams:
+            s.wait_stream(main)
+            with torch.cuda.stream(s):
+                outs.append(call())
+        for s in streams:
+            main.wait_stream(s)
+        return outs
+
+    with _deadline(BATCH_DEADLINE, what):
+        for rep in range(3):
+            for b, out in enumerate(burst()):
+                if not all(torch.equal(o, r) for o, r in zip(out, ref)):
+                    raise AssertionError(f"{what}: stream {b} differs from one "
+                                         f"stream (burst {rep})")
+        n, n_streams, over_ms, pairs, n_coop = _trace_overlap(burst)
+    print(f"{what} on {card}: every result equals one stream's; a burst traced: "
+          f"{n} kernels on {n_streams} streams, {over_ms:.3f} ms with kernels of two "
+          f"or more streams running, {pairs} pairs of cooperative "
+          f"kernels ({n_coop} in all) overlapping across streams", flush=True)
+    del C, Sh, ref
+    torch.cuda.empty_cache()
+
+
+def _entry_points(card):
+    """Phase 11: the CLI (BM default, SGM-8, run_preloaded) from calibration
+    files, the pipelined batch mode on four streams (SGM-8 and BM), the
+    setters, and the host syncs of a frame. Returns {path: launches}."""
+    import tempfile
+
+    import torch
+
+    from rt_depth_map_tpu_torch import Engine
+    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+    from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
+    from rt_depth_map_tpu_torch.sources import MultiStreamSource
+
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        intr, extr = _write_calibration(tmp, W, H)
+        cal = ["-i", intr, "-e", extr, "--source", "synthetic"]
+        # the CLI's default matcher: BM, -nd 192 (D = 192 at 1280), bs 13
+        argv = cal + ["--frames", str(CLI_FRAMES), "--stats", "--print-depth",
+                      "--show-disparity-value"]
+        out, err, launches = _run_cli(argv, "cli bm")
+        what = f"phase 11 cli bm {W}x{H} D=192"
+        if "D=192" not in err or f"processed {CLI_FRAMES} frames" not in err:
+            raise AssertionError(f"{what}: {err[-1500:]}")
+        _require_launched(launches, BM_PATH, what, BIDIR + ("sgm_cost_volume",))
+        _cli_labels_match_plain(argv, out, what, CLI_FRAMES, (0, 1, 7, CLI_FRAMES - 1))
+        runs[f"cli bm {W}x{H} D=192"] = launches
+
+        argv = cal + ["--matcher", "sgm", "-nd", "128", "--frames", str(CLI_FRAMES),
+                      "--stats", "--print-depth", "--show-disparity-value"]
+        out, err, launches = _run_cli(argv, "cli sgm-8")
+        what = f"phase 11 cli sgm-8 {W}x{H} D=128"
+        if "D=128" not in err or f"processed {CLI_FRAMES} frames" not in err:
+            raise AssertionError(f"{what}: {err[-1500:]}")
+        _require_launched(launches, SGM_PATH, what, ("bm_cost_wta", "sgm_horiz_pass"))
+        _cli_labels_match_plain(argv, out, what, CLI_FRAMES, (0, CLI_FRAMES - 1))
+        runs[f"cli sgm-8 {W}x{H} D=128"] = launches
+
+        rates = {}
+        for name, extra in (("run", []), ("run_preloaded", ["--preload", "6"])):
+            _, err, launches = _run_cli(
+                cal + ["--frames", str(PRELOAD_FRAMES), "--stats"] + extra,
+                f"cli bm {name}")
+            _require_launched(launches, BM_PATH, f"phase 11 cli bm {name}")
+            if f"processed {PRELOAD_FRAMES} frames" not in err:
+                raise AssertionError(f"phase 11 cli bm {name}: {err[-1500:]}")
+            rates[name] = _fps_of(err)
+        print(f"phase 11 cli bm {W}x{H} D=192 on {card}: run {rates['run']:.2f} "
+              f"frames/s, run_preloaded {rates['run_preloaded']:.2f} frames/s "
+              f"({PRELOAD_FRAMES} frames, no consumer)", flush=True)
+
+    # -- the pipelined batch mode: four rigs, four streams -----------------
+    for kind, path in (("sgm", SGM_PATH), ("bm", BM_PATH)):
+        what = f"phase 11 batch {kind} x{BATCH} {W}x{H}"
+        cfg = _config(kind, W, H).replace(batch=BATCH)
+        rigs = lambda ring=0: MultiStreamSource(  # noqa: E731
+            [_source(W, H, ring=ring, seed=s) for s in range(BATCH)])
+        eng = Engine(cfg, rectification=_rectification(W, H), source=rigs(),
+                     device=DEV)
+        eng.warmup()
+        batch_streams = {s.cuda_stream for s in eng._streams}
+        with _deadline(BATCH_DEADLINE, f"{what} checked steps"):
+            with _no_plain_on_card(), _streams_seen() as seen:
+                reset_launch_counts()
+                results = [eng.step_batch() for _ in range(BATCH_STEPS)]
+                launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
+        _require_launched(launches, path, what)
+        coop = ("cc_sweep",) + (("sgm_vert_wta",) if kind == "sgm" else ())
+        for mod in coop:
+            if not batch_streams <= seen.get(mod, set()):
+                raise AssertionError(f"{what}: {mod} launched on "
+                                     f"{len(seen.get(mod, ()))} streams, not on all "
+                                     f"{BATCH} of the batch")
+        print(f"{what}: {BATCH_STEPS} steps, launches {launches}; the cooperative "
+              f"kernels ({', '.join(coop)}) launched on all {BATCH} streams", flush=True)
+        ref_rigs = [_source(W, H, seed=s) for s in range(BATCH)]
+        for step, res in enumerate(results):
+            for b, rig in enumerate(ref_rigs):
+                lf, rf, _, _ = rig.render(step)
+                ref = FrameResult(**_to_host(eng.frame_program(
+                    torch.from_numpy(lf).to(DEV), torch.from_numpy(rf).to(DEV),
+                    plain=True)))
+                for k in ("disparity", "boxes", "mask", "count", "rgb_rect"):
+                    if not np.array_equal(getattr(res[b], k), getattr(ref, k)):
+                        raise AssertionError(f"{what} step {step} rig {b}: {k} "
+                                             f"differs from the plain program")
+                for k in ("depth_cm", "mean_z"):
+                    if not np.allclose(getattr(res[b], k), getattr(ref, k),
+                                       rtol=1e-5, equal_nan=True):
+                        raise AssertionError(f"{what} step {step} rig {b}: {k} "
+                                             f"off the plain program's")
+                if not res[b].has_objects:
+                    raise AssertionError(f"{what} step {step} rig {b}: no box")
+        print(f"{what}: every frame of {BATCH_STEPS} steps equals the plain program "
+              f"of its rig's pair", flush=True)
+        runs[f"batch {kind} x{BATCH} {W}x{H}"] = launches
+
+        timed = Engine(cfg, rectification=_rectification(W, H), source=rigs(8),
+                       device=DEV)
+        with _deadline(BATCH_DEADLINE, f"{what} timing"):
+            for _ in range(8):  # render each rig's ring
+                timed.step_batch()
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(BATCH_TIMED_STEPS):
+                timed.step_batch()
+            batch_fps = BATCH * BATCH_TIMED_STEPS / (time.perf_counter() - t0)
+            single = _engine(kind, W, H, ring=8)
+            single.warmup()
+            single.run(frames=8, print_stats_on_sigint=False)  # render the ring
+            f0, s0 = single.stats.wall_frames, single.stats.wall_seconds
+            single.run(frames=BATCH * BATCH_TIMED_STEPS, print_stats_on_sigint=False)
+            single_fps = ((single.stats.wall_frames - f0)
+                          / (single.stats.wall_seconds - s0))
+            lefts = [_source(W, H, seed=s).render(0)[0] for s in range(BATCH)]
+            rights = [_source(W, H, seed=s).render(0)[1] for s in range(BATCH)]
+            step = lambda: timed.process_batch(lefts, rights)  # noqa: E731
+            dev_ms, wall_ms, ops = _device_busy(step)
+            n, streams, over_ms, pairs, n_coop = _trace_overlap(step)
+            syncs = _host_syncs(lambda: timed.dispatch_batch(lefts, rights))
+        print(f"{what}: host syncs of dispatch_batch: {syncs or 'none'}", flush=True)
+        if any("rt_depth_map_tpu_torch" in site for site in syncs):
+            raise AssertionError(f"{what}: dispatch_batch waits for the device")
+        print(f"{what} timing on {card}: step_batch {batch_fps:.2f} frames/s over "
+              f"{BATCH_TIMED_STEPS} steps; single-stream run {single_fps:.2f} frames/s "
+              f"over {BATCH * BATCH_TIMED_STEPS} frames; a step {wall_ms:.3f} ms of wall, "
+              f"{dev_ms:.3f} ms of kernel time summed over its streams (ratio "
+              f"{dev_ms / wall_ms:.3f}), {ops:g} device operations", flush=True)
+        print(f"{what} trace of one step: {n} kernels on {streams} streams, "
+              f"{over_ms:.3f} ms with kernels of two or more streams running; "
+              f"{pairs} pairs of cooperative kernels ({n_coop} in all) overlapping "
+              f"across streams", flush=True)
+        del eng, timed, single
+        torch.cuda.empty_cache()
+
+    _coop_streams(card)
+
+    # -- the setters: the next frame equals a fresh engine's -----------------
+    lf, rf, _, _ = _source(W, H).render(0)
+    pair = (torch.from_numpy(lf).to(DEV), torch.from_numpy(rf).to(DEV))
+    low, high, size = [0, 120, 60], [12, 255, 255], 50000
+    eng = _engine("bm", W, H)
+    before = FrameResult(**_to_host(eng.frame_program(*pair)))
+    eng.set_hsv_thresholds(low, high)
+    eng.set_min_object_size(size)
+    got = FrameResult(**_to_host(eng.frame_program(*pair)))
+    fresh = _engine("bm", W, H)
+    fresh.set_hsv_thresholds(low, high)
+    fresh.set_min_object_size(size)
+    ref = FrameResult(**_to_host(fresh.frame_program(*pair)))
+    for k in ("disparity", "boxes", "mask", "count", "rgb_rect", "depth_cm", "mean_z"):
+        if not np.array_equal(getattr(got, k), getattr(ref, k), equal_nan=k in (
+                "depth_cm", "mean_z")):
+            raise AssertionError(f"phase 11 setters: {k} differs from a fresh engine's")
+    nb, na = int(before.boxes[:, 4].sum()), int(got.boxes[:, 4].sum())
+    if nb == na:
+        raise AssertionError(f"phase 11 setters: boxes {nb} -> {na}, no change")
+    print(f"phase 11 setters: boxes {nb} -> {na}; the next frame equals a fresh "
+          f"engine's with the same values", flush=True)
+
+    # -- host syncs of one frame (set_sync_debug_mode) -----------------------
+    for kind in ("sgm", "bm"):
+        e = _engine(kind, W, H)
+        syncs = _host_syncs(lambda: e.frame_program(*pair))
+        print(f"phase 11 host syncs, {kind} frame program: {syncs or 'none'}",
+              flush=True)
+        if any("rt_depth_map_tpu_torch" in site for site in syncs):
+            raise AssertionError(f"phase 11: the {kind} frame program waits for the "
+                                 f"device: {syncs}")
+        del e
+    return runs
 
 
 def main() -> int:
@@ -1578,6 +2019,9 @@ def main() -> int:
         del p_eng
         torch.cuda.empty_cache()
 
+    # -- 11. the entry points: the CLI, the batch mode, setters, syncs -------
+    entry_runs = _entry_points(card)
+
     # each kernel's launches on the path that runs it: the flagship's for
     # its kernels, the stretch run's for the chained passes, the BM run's
     # for K8, the flagship's with the post filter for the smoother (K10
@@ -1588,7 +2032,7 @@ def main() -> int:
             f"sgm-5 {W}x{H} D={D} (chained)": sgbm5_launches,
             f"bm {str_w}x{str_h} D=288 (default)": bmd_launches,
             f"sgm-8 {W}x{H} D={D} + WLS": post_runs["sgm"],
-            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"]}
+            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"], **entry_runs}
     kernels = []
     for wrapper, source, replaces in KERNELS:
         n = wrapper.__name__

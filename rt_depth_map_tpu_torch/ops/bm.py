@@ -70,7 +70,10 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     if roi1 is not None or roi2 is not None:
         def norm(r):
             r = (0, 0, W, H) if r is None else r
-            r = [torch.as_tensor(v, dtype=torch.int32, device=dev) for v in r]
+            # a Python int becomes a device fill, not an upload (which
+            # would make the host wait for the device)
+            r = [v.to(torch.int32) if isinstance(v, torch.Tensor)
+                 else torch.full((), v, dtype=torch.int32, device=dev) for v in r]
             nonempty = r[2] * r[3] > 0
             return [torch.where(nonempty, v, f) for v, f in zip(r, (0, 0, W, H))]
 

@@ -9,6 +9,8 @@ division on the card can flip an entry.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -27,6 +29,14 @@ def _divisor_tables():
 SDIV_TABLE, HDIV_TABLE = _divisor_tables()
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device):
+    """The two tables on `device`, uploaded once: an upload from pageable
+    host memory makes the host wait for the device's queue."""
+    return (torch.as_tensor(SDIV_TABLE, device=device),
+            torch.as_tensor(HDIV_TABLE, device=device))
+
+
 def rgb_to_gray(rgb: torch.Tensor) -> torch.Tensor:
     """RGB (..., 3) uint8 -> gray (...) uint8, Y = (4899R + 9617G + 1868B
     + 2^13) >> 14."""
@@ -42,8 +52,9 @@ def rgb_to_hsv(rgb: torch.Tensor) -> torch.Tensor:
     v = torch.maximum(torch.maximum(r, g), b)
     diff = v - torch.minimum(torch.minimum(r, g), b)
     half = 1 << (HSV_SHIFT - 1)
-    sdiv = torch.as_tensor(SDIV_TABLE, device=rgb.device)[v.long()]
-    hdiv = torch.as_tensor(HDIV_TABLE, device=rgb.device)[diff.long()]
+    sdiv_table, hdiv_table = _device_tables(rgb.device)
+    sdiv = sdiv_table[v.long()]
+    hdiv = hdiv_table[diff.long()]
 
     s = torch.where(v == 0, 0, (diff * sdiv + half) >> HSV_SHIFT)
     h_raw = torch.where(

@@ -4,7 +4,9 @@ Port of `rt_depth_map_tpu/ops/detect.py`: 8-connected components
 (findContours RETR_EXTERNAL bounding rects), boxes whose bbox AREA is below
 min_size dropped, the first `max_objects` roots in raster order as a fixed
 (max_objects, 5) int32 [x, y, w, h, valid] array, and the union bbox of the
-valid boxes as the matcher ROI.
+valid boxes as the matcher ROI. The roots are picked by one `torch.topk` of
+fixed size (the reference's formulation, without its TPU chunking), so the
+host never waits for the device here.
 """
 
 from __future__ import annotations
@@ -32,14 +34,16 @@ def detect_objects(mask: torch.Tensor, min_size, max_objects: int,
     bw = maxx - minx + 1
     bh = maxidx // W - miny + 1
     keep = active.reshape(-1) & (labels == idx) & (bw * bh >= min_size)
-    # nonzero lists the roots in raster (== label) order
-    roots = torch.nonzero(keep).squeeze(1)[:max_objects]
-    n = roots.shape[0]
-    boxes = torch.zeros((max_objects, 5), dtype=torch.int32, device=mask.device)
-    boxes[:n] = torch.stack(
-        [minx[roots], miny[roots], bw[roots], bh[roots],
-         torch.ones_like(roots, dtype=torch.int32)], dim=1)
-    return boxes
+    # the first max_objects roots in raster (== label) order: a top-k of
+    # -index over the kept roots, whose size needs no host sync
+    none = -(2**30)
+    score = torch.where(keep, -idx, none)
+    neg, roots = torch.topk(score, max_objects)
+    valid = neg != none
+    r = torch.where(valid, roots, 0)
+    boxes = torch.stack([minx[r], miny[r], bw[r], bh[r],
+                         valid.to(torch.int32)], dim=1)
+    return torch.where(valid[:, None], boxes, 0)
 
 
 def matching_region(boxes: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -41,9 +41,11 @@ def reproject_to_3d(disp: torch.Tensor, Q: torch.Tensor, min_disparity: int = 0,
 
 
 def calc_depth(xyz: torch.Tensor, mask: torch.Tensor, boxes: torch.Tensor,
-               calibration_unit: float):
+               calibration_unit: float, extra: torch.Tensor = None):
     """(depth_cm, mean_z, count), each (K,): masked mean Z per valid box,
-    NaN where a box is invalid or holds no accepted pixel."""
+    NaN where a box is invalid or holds no accepted pixel. `extra` (H, W):
+    a fourth output, its mean over the same accepted pixels (the
+    SHOW_DISPARITY_VALUE mean disparity shares the depth loop's condition)."""
     H, W = mask.shape
     Z = xyz[..., 2]
     ok = (((Z - MISSING_Z).abs() >= FLT_EPSILON) & (Z.abs() <= 1.0e4)
@@ -54,6 +56,13 @@ def calc_depth(xyz: torch.Tensor, mask: torch.Tensor, boxes: torch.Tensor,
     inside = (xs >= x) & (xs < x + w) & (ys >= y) & (ys < y + h) & (valid > 0)
     m = inside & ok[None]
     count = m.sum(dim=(1, 2), dtype=torch.int32)
-    s = torch.where(m, Z[None], 0.0).sum(dim=(1, 2))
-    mean_z = torch.where(count > 0, s / count.clamp(min=1), float("nan"))
-    return mean_z * (calibration_unit / 10.0), mean_z, count
+
+    def mean(plane):
+        s = torch.where(m, plane.to(torch.float32)[None], 0.0).sum(dim=(1, 2))
+        return torch.where(count > 0, s / count.clamp(min=1), float("nan"))
+
+    mean_z = mean(Z)
+    depth_cm = mean_z * (calibration_unit / 10.0)
+    if extra is None:
+        return depth_cm, mean_z, count
+    return depth_cm, mean_z, count, mean(extra)

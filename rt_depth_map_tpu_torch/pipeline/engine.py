@@ -1,8 +1,10 @@
 """The Engine: host frame loop + the per-frame program on the port's device.
 
-Port of `rt_depth_map_tpu/pipeline/engine.py` for a single frame stream.
-Host side: grab -> MJPEG decode (stale-frame reuse on corrupt input) -> H2D,
-with an optional prefetch thread. Device side, one method per frame:
+Port of `rt_depth_map_tpu/pipeline/engine.py`. Host side: grab -> MJPEG
+decode (stale-frame reuse on corrupt input) -> H2D from pinned memory, with
+an optional prefetch thread (`run`), device-resident inputs cycled through
+the program (`run_preloaded`), or B rigs a step (`step_batch`). Device side,
+one method per frame:
 
   gray x2 -> rectification remap (K1) with ROI crop -> HSV threshold ->
   morphological open/close -> connected-component boxes (K2) -> matcher ->
@@ -21,11 +23,19 @@ With `enable_post_filter` (the reference's ENABLE_POST_FILTER), a right-view
 matcher of the same kind runs over the mirrored range on (right, left),
 without ROI, LR check or speckle filter, and the WLS filter (`ops/wls.py`:
 the LR confidence, then the smoother kernel's row and column solves)
-refines the left disparity into `filtered_disparity`.
+refines the left disparity into `filtered_disparity`. With
+`show_disparity_value`, `disparity_mean` holds each box's mean disparity
+over the depth mean's pixels, and `labels()` shows it.
+
+The HSV thresholds and the minimum object size change at run time
+(`set_hsv_thresholds`, `set_min_object_size`) without a rebuild. With
+`EngineConfig.batch` B > 1 the engine runs the "pipelined" multi-stream
+mode: B independent frame programs a step, each on a CUDA stream of its own
+(`dispatch_batch`, `process_batch`, `step_batch`).
 
 PyTorch runs eagerly, so there is no compile step; the CUDA kernels build at
-their first launch. Not ported yet: batch > 1, run_preloaded and
-show_disparity_value.
+their first launch. Not ported: the reference's "fused" and "unrolled"
+batch modes (TPU lane-stacking; ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -72,16 +82,27 @@ class FrameResult:
     rgb_rect: np.ndarray  # (Hr, Wr, 3) uint8 rectified left view
     #: WLS-refined disparity (ENABLE_POST_FILTER), None unless enabled
     filtered_disparity: Optional[np.ndarray] = None
+    #: (K,) mean disparity per box (SHOW_DISPARITY_VALUE), None unless enabled
+    disparity_mean: Optional[np.ndarray] = None
 
     @property
     def has_objects(self) -> bool:
         return bool(self.boxes[:, 4].sum() > 0)
 
     def labels(self):
-        """(x, y, 'NNN cm') depth labels (estimator.cpp:250-259 parity)."""
-        return [(int(b[0]), int(b[1]), f"{cm:.0f} cm")
-                for b, cm in zip(self.boxes, self.depth_cm)
-                if b[4] and np.isfinite(cm)]
+        """(x, y, 'NNN cm') depth labels (set_label parity,
+        estimator.cpp:250-259); appends ' disparity = N' when
+        SHOW_DISPARITY_VALUE output is present."""
+        out = []
+        for i, (box, cm) in enumerate(zip(self.boxes, self.depth_cm)):
+            if box[4] and np.isfinite(cm):
+                txt = f"{cm:.0f} cm"
+                if self.disparity_mean is not None and np.isfinite(
+                    self.disparity_mean[i]
+                ):
+                    txt += f" disparity = {self.disparity_mean[i]:.1f}"
+                out.append((int(box[0]), int(box[1]), txt))
+        return out
 
 
 def _identity_grid(width: int, height: int) -> np.ndarray:
@@ -109,7 +130,9 @@ class Engine:
     """Pipeline orchestrator (Estimator parity) for one device.
 
     device: "cuda" (the kernels run on the card; raises when CUDA is not
-    available) or "cpu" (the kernels' plain versions run, for tests)."""
+    available) or "cpu" (the kernels' plain versions run, for tests).
+    batch_mode: how `process_batch` runs cfg.batch > 1 pairs; the port has
+    the reference's default, "pipelined", only."""
 
     def __init__(
         self,
@@ -117,17 +140,20 @@ class Engine:
         rectification: Optional[RectificationResult] = None,
         source=None,
         device="cuda",
+        batch_mode: str = "pipelined",
     ):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): CUDA is not available")
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
-        if cfg.batch != 1 or cfg.show_disparity_value:
+        if batch_mode != "pipelined":
             raise NotImplementedError(
-                "the port runs batch=1 without show_disparity_value; "
-                "see ROADMAP.md")
+                f"batch_mode {batch_mode!r}: the port runs the pipelined mode "
+                "only (the fused and unrolled modes are TPU lane-stacking; "
+                "see ROADMAP.md)")
         self.cfg = cfg
+        self.batch_mode = batch_mode
         self.device = device
         self.source = source if source is not None else make_source(cfg)
         self.decoder = None  # built at the first MJPEG frame
@@ -178,6 +204,9 @@ class Engine:
         self.max_consecutive_decode_failures = 30
         self._consecutive_failures = 0
         self._frames_done = 0
+        # the pipelined batch mode's streams, one a rig, made once
+        self._streams = ([torch.cuda.Stream(device) for _ in range(cfg.batch)]
+                         if device.type == "cuda" and cfg.batch > 1 else None)
 
     # -- device program ----------------------------------------------------
     def frame_program(self, left_rgb: torch.Tensor, right_rgb: torch.Tensor,
@@ -228,17 +257,120 @@ class Engine:
         dint = disparity_fixed_to_float(disp)
         xyz = reproject_to_3d(dint, st.Q, st.matcher.min_disparity, True)
         mark("/16 + reprojection")
-        depth_cm, mean_z, count = calc_depth(xyz, filt, boxes,
-                                             cfg.calibration_unit_mm)
+        # SHOW_DISPARITY_VALUE (estimator.h:33): the mean disparity per box
+        # over the same accepted pixels as the depth mean
+        extra = dint if cfg.show_disparity_value else None
+        depth_cm, mean_z, count, *disp_mean = calc_depth(
+            xyz, filt, boxes, cfg.calibration_unit_mm, extra=extra)
         mark("calc_depth")
         return dict(disparity=disp, boxes=boxes, depth_cm=depth_cm,
                     mean_z=mean_z, count=count, mask=filt, rgb_rect=rgbr,
-                    filtered_disparity=filtered)
+                    filtered_disparity=filtered,
+                    disparity_mean=disp_mean[0] if disp_mean else None)
+
+    def _upload(self, img) -> torch.Tensor:
+        """One decoded image (numpy or tensor) onto the device, on the
+        current stream. On the card the host copies it into pinned memory
+        and does not wait for the device: a copy from pageable memory would
+        wait for every frame queued before it."""
+        t = img if isinstance(img, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(img))
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
 
     def _dispatch(self, left: np.ndarray, right: np.ndarray) -> dict:
         """H2D + the frame program for one decoded pair (device outputs)."""
-        return self.frame_program(torch.from_numpy(left).to(self.device),
-                                  torch.from_numpy(right).to(self.device))
+        return self.frame_program(self._upload(left), self._upload(right))
+
+    # -- run-time thresholds -------------------------------------------------
+    def set_hsv_thresholds(self, low, high) -> None:
+        """Runtime HSV threshold adjustment (the reference's -a trackbar UI,
+        estimator.cpp:294-304), for the next frame, without a rebuild. New
+        device tensors go into the state: a frame still in flight keeps
+        reading the ones it was given."""
+        self.hsv_low = np.asarray(low, np.uint8)
+        self.hsv_high = np.asarray(high, np.uint8)
+        self.state = dataclasses.replace(
+            self.state,
+            hsv_low=torch.tensor(self.hsv_low, device=self.device),
+            hsv_high=torch.tensor(self.hsv_high, device=self.device))
+
+    def set_min_object_size(self, min_size: int) -> None:
+        """The minimum box area of the detection, for the next frame."""
+        self.min_object_size = int(min_size)
+        self.state = dataclasses.replace(self.state,
+                                         min_object_size=self.min_object_size)
+
+    # -- the pipelined multi-stream mode ------------------------------------
+    def dispatch_batch(self, lefts, rights) -> list:
+        """B independent frame programs, one a rig (the reference's
+        pipelined multi-stream mode); returns the B device output dicts
+        WITHOUT waiting. lefts/rights: B decoded (H, W, 3) uint8 images
+        each. On the card each frame is uploaded and runs on its own CUDA
+        stream, and the current stream waits for them on the device before
+        it reads their outputs; on the CPU they run one after the other."""
+        B = self.cfg.batch
+        if not len(lefts) == B == len(rights):
+            raise ValueError(f"dispatch_batch: {len(lefts)} left and "
+                             f"{len(rights)} right images for batch {B}")
+        if self._streams is None:
+            return [self._dispatch(l, r) for l, r in zip(lefts, rights)]
+        main = torch.cuda.current_stream(self.device)
+        st = self.state
+        outs = []
+        for s, left, right in zip(self._streams, lefts, rights):
+            # the state may have been written on `main` (a setter); a
+            # setter's new tensors free the old ones, which must outlive
+            # this stream's reads
+            s.wait_stream(main)
+            st.hsv_low.record_stream(s)
+            st.hsv_high.record_stream(s)
+            with torch.cuda.stream(s):
+                outs.append(self.frame_program(self._upload(left),
+                                               self._upload(right)))
+        for s, out in zip(self._streams, outs):
+            main.wait_stream(s)
+            for t in out.values():
+                if t is not None:
+                    t.record_stream(main)  # read and freed on `main`
+        return outs
+
+    def process_batch(self, lefts, rights) -> list:
+        """The frame program on B decoded pairs (multi-stream batching,
+        BASELINE.md); returns a list of B FrameResults."""
+        if self.cfg.batch <= 1:
+            raise ValueError("process_batch needs EngineConfig.batch > 1")
+        return [FrameResult(**_to_host(o))
+                for o in self.dispatch_batch(lefts, rights)]
+
+    def step_batch(self) -> Optional[list]:
+        """One batched iteration: grab cfg.batch pairs (one from each rig of
+        a MultiStreamSource, or consecutive frames of a single source),
+        decode, and run them as one step."""
+        B = self.cfg.batch
+        st = self.stats
+        st.start_iteration()
+        with st.measure("grabOneFrame"):
+            if hasattr(self.source, "grab_batch"):
+                pairs = self.source.grab_batch()
+            else:
+                pairs = [self.source.grab() for _ in range(B)]
+        with st.measure("decode"):
+            decoded = []
+            for lf, rf in pairs:
+                left = self._decode_eye(lf, 0)
+                right = self._decode_eye(rf, 1)
+                if left is not None and right is not None:
+                    decoded.append((left, right))
+        if len(decoded) < B:
+            return None
+        self._last = decoded[-1]
+        with st.measure("h2d+device+d2h"):
+            results = self.process_batch([d[0] for d in decoded],
+                                         [d[1] for d in decoded])
+        self._frames_done += B
+        return results
 
     # -- host loop ---------------------------------------------------------
     def _decode_eye(self, frame, slot: int) -> Optional[np.ndarray]:
@@ -430,6 +562,57 @@ class Engine:
                 producer.join(timeout=2.0)
             if old is not None:
                 signal.signal(signal.SIGINT, old)
+
+    def run_preloaded(self, frames: int, n_inputs: int = 6,
+                      pipeline_depth: int = 3) -> int:
+        """Sustained-throughput loop over DEVICE-RESIDENT inputs: n_inputs
+        distinct pairs are grabbed, decoded and uploaded ONCE, then cycled
+        through the frame program for `frames` dispatches (the reference's
+        device-owned buffers, include/filter/filter.h:13-37): throughput is
+        bounded by the device program and its host launches, not ingest."""
+        if frames <= 0:
+            return 0
+        st = self.stats
+        pairs = []
+        with st.measure("preload (grab+decode+h2d)"):
+            guard = 0
+            while len(pairs) < n_inputs and guard < 10 * n_inputs:
+                guard += 1
+                pair = self._grab_decode()
+                if pair is None:
+                    continue
+                pairs.append((self._upload(pair[0]), self._upload(pair[1])))
+            if not pairs:
+                raise RuntimeError(
+                    "run_preloaded: no frame pair could be grabbed+decoded "
+                    f"in {guard} attempts (source unhealthy?)"
+                )
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        from collections import deque
+
+        st.mark_overlapped("d2h")
+        pending = deque()
+        done0 = self._frames_done
+        t0 = time.perf_counter()
+        for i in range(frames):
+            st.start_iteration()
+            left, right = pairs[i % len(pairs)]
+            with st.measure("dispatch"):
+                pending.append(self.frame_program(left, right))
+            self._frames_done += 1
+            while len(pending) >= max(1, pipeline_depth):
+                out = pending.popleft()
+                if i % 8 == 0:  # backpressure only
+                    with st.measure("d2h"):
+                        out["count"].cpu()
+        while pending:
+            out = pending.popleft()
+        with st.measure("d2h"):
+            out["count"].cpu()  # final completion barrier
+        st.note_wall(self._frames_done - done0, time.perf_counter() - t0)
+        return frames
 
     def warmup(self) -> float:
         """Run one black frame (builds the kernels on first use); returns

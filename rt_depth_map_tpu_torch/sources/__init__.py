@@ -14,6 +14,7 @@ capture behind the same protocol.
 from rt_depth_map_tpu_torch.sources.base import StereoFrame, StereoSource  # noqa: F401
 from rt_depth_map_tpu_torch.sources.synthetic import SyntheticStereoSource  # noqa: F401
 from rt_depth_map_tpu_torch.sources.files import FileSequenceSource  # noqa: F401
+from rt_depth_map_tpu_torch.sources.multi import MultiStreamSource  # noqa: F401
 
 
 def make_source(cfg) -> "StereoSource":

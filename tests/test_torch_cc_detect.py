@@ -5,6 +5,7 @@ the propagation converges and where the 16-sweep cap stops it short."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -86,6 +87,37 @@ def test_detect_objects_matches_jax(seed, max_objects):
         ref_roi = [int(v) for v in jregion(jnp.asarray(ref))]
         got_roi = [int(v) for v in matching_region(got)]
         assert got_roi == ref_roi
+
+
+def _detect_case(name):
+    """(mask, max_objects) for the top-k's edge cases."""
+    if name == "more_roots":  # 64 dots, 8 kept; H*W = 4096, a multiple of 2048
+        m = np.zeros((64, 64), np.uint8)
+        m[2::8, 3::8] = 255
+        return m, 8
+    if name == "none":
+        return np.zeros((48, 64), np.uint8), 8
+    if name == "last_row":  # roots only in the last row, H*W = 2745
+        m = np.zeros((45, 61), np.uint8)
+        m[-1, 1::6] = 255
+        return m, 4
+    m = blob_mask(4, 45, 61, n_blobs=9, noise=0.02)  # H*W not a multiple of 2048
+    return m, 5
+
+
+@pytest.mark.parametrize("name", ["more_roots", "none", "last_row", "odd_size"])
+def test_detect_objects_topk_cases_match_jax(name):
+    mask, max_objects = _detect_case(name)
+    valid = []
+    for min_size in (1, 3):
+        ref = np.asarray(jdetect(jnp.asarray(mask), min_size, max_objects))
+        got = detect_objects(t(mask), min_size, max_objects)
+        assert got.dtype == torch.int32 and got.shape == (max_objects, 5)
+        np.testing.assert_array_equal(got.numpy(), ref)
+        valid.append(int(got[:, 4].sum()))
+    # one-pixel roots pass min_size 1 only
+    assert valid == {"more_roots": [8, 0], "none": [0, 0],
+                     "last_row": [4, 0]}.get(name, valid)
 
 
 def test_matching_region_empty():

@@ -243,12 +243,13 @@ def test_engine_cuda_device_raises_without_cuda():
 
 
 def test_engine_refuses_unported_configs():
-    """batch > 1 and show_disparity_value are not ported yet (the WLS post
-    filter is: test_engine_post_filter_matches_jax)."""
+    """The reference's "fused" and "unrolled" batch modes are not ported
+    (TPU lane-stacking); batch > 1 runs the pipelined mode and
+    show_disparity_value runs too (tests/test_torch_engine_extras.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(_cfg().replace(show_disparity_value=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        Engine(_cfg().replace(batch=2), device="cpu")
+        Engine(_cfg().replace(batch=2), device="cpu", batch_mode="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(_cfg().replace(batch=2), device="cpu", batch_mode="unrolled")
 
 
 def test_port_imports_and_runs_with_jax_blocked():
@@ -256,16 +257,24 @@ def test_port_imports_and_runs_with_jax_blocked():
 import sys
 for m in ("jax", "jaxlib", "cv2", "yaml", "rt_depth_map_tpu"):
     sys.modules[m] = None
-import pkgutil, importlib
+import pkgutil, importlib, runpy
 import rt_depth_map_tpu_torch
 for m in pkgutil.walk_packages(rt_depth_map_tpu_torch.__path__, "rt_depth_map_tpu_torch."):
-    importlib.import_module(m.name)
+    if not m.name.endswith("__main__"):  # that one runs the CLI
+        importlib.import_module(m.name)
 from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 for kind in ("bm", "sgm"):
     cfg = EngineConfig(width=128, height=64, number_of_disparities=16,
                        matcher=MatcherConfig(kind=kind, num_disparities=16))
     res = rt_depth_map_tpu_torch.Engine(cfg, device="cpu").step()
     assert res.disparity.shape == (64, 128)
+# python -m rt_depth_map_tpu_torch, at a small size
+sys.argv = ["rt_depth_map_tpu_torch", "--device", "cpu", "--frames", "1",
+            "-W", "128", "-H", "64", "-nd", "16", "--print-depth"]
+try:
+    runpy.run_module("rt_depth_map_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 loaded = [k for k, v in sys.modules.items()
           if v is not None and k.split(".")[0] in ("jax", "jaxlib", "rt_depth_map_tpu")]
 assert not loaded, loaded
@@ -276,6 +285,7 @@ print("ok")
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+    assert "frame 0: " in proc.stdout and "processed 1 frames" in proc.stderr
 
 
 def test_port_sources_never_import_jax():

@@ -85,3 +85,21 @@ def remap_grid(case, Ho=40, Wo=56, H=40, W=56):
         mx = np.cos(a) * (ox - cx) - np.sin(a) * (oy - cy) + cx
         my = np.sin(a) * (ox - cx) + np.cos(a) * (oy - cy) + cy
     return np.stack([mx, my], axis=-1).astype(np.float32)
+
+
+
+def write_calibration(directory, w, h):
+    """intrinsics.yml / extrinsics.yml of a non-identity w x h rig, written
+    with the port's write_filestorage by chip_smoke.py's
+    `_write_calibration` (distortion on both cameras, a small relative
+    rotation, a 4.8-unit baseline along x; ROI (8, 12, w - 16, h - 16)).
+    Returns the two paths."""
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from chip_smoke import _write_calibration
+
+    return _write_calibration(str(directory), w, h)
