@@ -111,6 +111,27 @@ the input's range of
 its plain version, beside one scanline alone (one thread walking the chain
 of dependent divides: the latency floor of a sweep).
 
+Phase 3 also holds the exact width tiling's two kernels at the 720p
+frame's tile shape of 2 ranks (576 of W1 = 1152 columns, 90-row blocks):
+K3's output column window against the full volume's slice on each tile,
+and `sgm_tile_scan` against its plain version in every direction, timed on
+a wavefront step of the six cross-tile directions and on the tile-local
+vertical paths.
+
+ 12. the multi-rank paths (`parallel/` on torch.distributed), each rank a
+     spawned process on card 0 with every plain version guarded and its
+     path's launches required, joined under a deadline: NCCL at world size
+     1, the sharded step on a (1, 1) mesh (SGM-8 exact 1280x720 D=128)
+     against Engine.process_pair; gloo on one card (the exchanges through
+     host memory), (1, 2): the exact tiling and tiled BM-128 at 1280x720
+     bit-identical to the single-device port, the margin mode within the
+     1% bad-pixel budget, the exact tiling at 1920x1080 D=256, the sharded
+     step; (2, 2): the sharded step with B=4 (the dryrun_multichip
+     counterpart), every frame's disparity, boxes, mask and count against
+     Engine.process_pair; (1, 4) in the same world: the exact tiling at
+     1280x720 on 4 tiles. The ms a frame of each is printed; on gloo the
+     ranks time-slice one card, so those are not scaling figures.
+
 The last lines are the kernels' JSON summary (each kernel's first timed
 case, and under `cases` every timed case with its own bound and library
 time), the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -1005,6 +1026,426 @@ def _entry_points(card):
     return runs
 
 
+# -- the exact width tiling's kernels (phase 3) and phase 12 ---------------
+
+#: the tiles of the phase-3 tiling checks: the 720p frame's W1 over 2 ranks
+TILES = 2
+#: seconds a phase 12 world may take (its ranks' start included) before it
+#: is killed and the run fails
+PAR_DEADLINE = 420
+#: the kernels of each multi-rank path
+EXACT_PATH = ("sgm_cost_volume", "sgm_tile_scan", "lr_resolve_sgbm",
+              "seg_min_propagate", "speckle_decision", "speckle_apply")
+SHARDED_PATH = ("rectify_pair",) + EXACT_PATH
+TILED_BM_PATH = ("bm_cost_wta", "lr_resolve_bm", "seg_min_propagate",
+                 "speckle_decision", "speckle_apply")
+MARGIN_PATH = ("sgm_cost_volume", "lr_resolve_sgbm", "seg_min_propagate",
+               "speckle_decision", "speckle_apply")
+SINGLE_SGM = BIDIR + ("sgm_horiz_pass", "sgm_vert_pass", "sgm_final_wta")
+#: frames of the (2, 2) sharded step (dryrun_multichip's B = 2 x data)
+PAR_BATCH = 4
+
+
+def _tiling_kernels(check, lrect, rrect, m):
+    """K3's output column window and `sgm_tile_scan` at the 720p frame's
+    n = 2 tile shape (576 of W1 = 1152 columns, 90-row blocks), against the
+    full volume's slice and the plain versions."""
+    import torch
+
+    from rt_depth_map_tpu_torch.ops import sgbm as sg
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
+        sgm_cost_volume,
+        sgm_cost_volume_plain,
+    )
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import (
+        ScanJob,
+        sgm_tile_scan,
+        sgm_tile_scan_plain,
+    )
+    from rt_depth_map_tpu_torch.parallel.exact_sgbm import (
+        _default_row_block,
+        cross_dirs,
+        local_dirs,
+    )
+
+    dev = lrect.device
+    dtype = sg.volume_dtype(BS, m.pre_filter_cap)
+    lpl, rpl = sg.plane_stack(lrect, m.pre_filter_cap), sg.plane_stack(rrect, m.pre_filter_cap)
+    C, _, W1 = sgm_cost_volume(lpl, rpl, D, BS, dtype)
+    wloc = W1 // TILES
+    what = f"{H}x{W} D={D} tile of {wloc} columns"
+    for i in range(TILES):
+        cols = (i * wloc, wloc)
+        if not torch.equal(sgm_cost_volume(lpl, rpl, D, BS, dtype, cols=cols)[0],
+                           C[:, i * wloc: (i + 1) * wloc]):
+            raise AssertionError(f"sgm_cost_volume column window {cols} != the full "
+                                 f"volume's slice")
+    print(f"phase 3 sgm_cost_volume column windows: each of the {TILES} tiles "
+          f"equals the full volume's slice", flush=True)
+    cols = (wloc, wloc)  # the last tile: the replicate border on its right
+    Cw = sgm_cost_volume(lpl, rpl, D, BS, dtype, cols=cols)[0]
+    # the planes of the tile's columns and of the right columns they meet
+    check(sgm_cost_volume, lambda: sgm_cost_volume(lpl, rpl, D, BS, dtype, cols=cols)[0],
+          lambda: sgm_cost_volume_plain(lpl, rpl, D, BS, dtype, cols=cols)[0],
+          f"{what} (column window)",
+          bound=(2 * H * (wloc + D + BS) * 8, _nbytes(Cw), _lanes(21 * Cw.numel(), 2)),
+          plain_reps=3, primary=False)
+    Ct = C[:, :wloc].contiguous()  # tile 0
+    del C, Cw
+    p1, p2 = m.p1, max(m.p2, m.p1 + 1)
+    rb = _default_row_block(H, TILES)
+    g = torch.Generator(device="cpu").manual_seed(3)
+
+    def strip(rows):
+        return torch.randint(-500, 6000, (rows, D), generator=g,
+                             dtype=torch.int32).to(dev)
+
+    # a steady-state step of the wavefront: every cross-tile direction of 8
+    # paths on its block (k = 4 from the left, 3 from the right), random
+    # carries; then the first step's tile-local vertical paths
+    jobs = []
+    for dy, dx in cross_dirs(8):
+        k = 4 if dx == 1 else 3
+        start = H - (k + 1) * rb if dy == -1 else k * rb
+        jobs.append(ScanJob(dy, dx, start, rb, strip(rb + 1), strip(rb + 1), strip(wloc)))
+    local = [ScanJob(dy, dx, 0, H) for dy, dx in local_dirs(8)]
+    for job in jobs + local:
+        S0 = torch.zeros(Ct.shape, dtype=torch.int32, device=dev)
+        S1 = S0.clone()
+        err = _max_abs_err(_flat(S0, sgm_tile_scan(Ct, S0, [job], p1, p2)),
+                           _flat(S1, sgm_tile_scan_plain(Ct, S1, [job], p1, p2)))
+        if err:
+            raise AssertionError(f"sgm_tile_scan ({job.dy}, {job.dx}) {what}: kernel "
+                                 f"!= plain (max |err| {err})")
+        print(f"phase 3 sgm_tile_scan direction ({job.dy}, {job.dx}) rows "
+              f"[{job.row0}, {job.row0 + job.rows}) {what}: exact", flush=True)
+    del S0, S1
+    for name, js in (("a wavefront step, 6 directions", jobs),
+                     ("the tile-local vertical paths", local)):
+        Sk = torch.zeros(Ct.shape, dtype=torch.int32, device=dev)
+        elems = sum(j.rows for j in js) * wloc * D
+        # the function's floor: C read once and S read and written once for
+        # each distinct row block the directions cover (directions that share
+        # a block add into S in one pass; the carries are ~1%); ~8 int32
+        # operations an element and direction
+        block = sum(rows for _, rows in {(j.row0, j.rows) for j in js}) * wloc * D
+        check(sgm_tile_scan, lambda js=js, Sk=Sk: _flat(Sk, sgm_tile_scan(Ct, Sk, js, p1, p2)),
+              lambda js=js: _flat(*_plain_scan(Ct, js, p1, p2)),
+              f"{what}, {name}",
+              bound=(block * (Ct.element_size() + 4), block * 4, _lanes(8 * elems, 4)),
+              plain_reps=1)
+        del Sk
+    torch.cuda.empty_cache()
+
+
+def _plain_scan(C, jobs, p1, p2):
+    import torch
+
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import sgm_tile_scan_plain
+
+    S = torch.zeros(C.shape, dtype=torch.int32, device=C.device)
+    return S, sgm_tile_scan_plain(C, S, jobs, p1, p2)
+
+
+def _nonzero(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _flat(S, results):
+    """S and the jobs' outboxes and prevs, as one tuple (the comparison's)."""
+    return (S, *[t for pair in results for t in pair if t is not None])
+
+
+def _rank_setup(rank, world, port, backend):
+    """Bring one rank of a phase 12 world up on card 0: NCCL at world size 1
+    straight through init_process_group (`distributed_init` runs no world of
+    one), any other world through `distributed_init`."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from rt_depth_map_tpu_torch.parallel.launch import distributed_init
+
+    if world == 1:
+        torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=1, rank=0,
+                                timeout=datetime.timedelta(seconds=PAR_DEADLINE))
+        # the backend itself on the card: a collective over the world
+        x = torch.ones(4, device="cuda")
+        dist.all_reduce(x)
+        if dist.get_backend() != "nccl" or not torch.equal(x, torch.ones_like(x)):
+            raise AssertionError(f"world of one on {dist.get_backend()}: all_reduce {x}")
+    elif not distributed_init(f"127.0.0.1:{port}", world, rank, device="cuda",
+                              backend=backend, timeout=PAR_DEADLINE):
+        raise AssertionError("distributed_init returned False")
+
+
+def _rank_counts(fn):
+    """fn() with the counts set to 0 just before, every rank started
+    together; (its result, the launches, this rank's ms)."""
+    import torch
+    import torch.distributed as dist
+
+    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+
+    dist.barrier()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {w.__name__: w.launches for w, _, _ in KERNELS}, ms
+
+
+def _rank_ms(fn, reps=3):
+    """Median ms of fn() on this rank, every rank started together."""
+    import torch
+    import torch.distributed as dist
+
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _gray_pair(w, h):
+    import torch
+
+    from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
+
+    lf, rf, _, _ = _source(w, h).render(0)
+    return (rgb_to_gray(torch.from_numpy(lf).to(DEV)),
+            rgb_to_gray(torch.from_numpy(rf).to(DEV)))
+
+
+def _job_sharded(shape, frames):
+    """The sharded step (SGM-8 exact, 1280x720 D=128, through the phases'
+    rectification) on `frames` frames; each of this rank's frames against
+    Engine.process_pair."""
+    import torch
+
+    from rt_depth_map_tpu_torch import Engine
+    from rt_depth_map_tpu_torch.parallel import make_mesh
+    from rt_depth_map_tpu_torch.parallel.pipeline_sharded import make_sharded_step
+
+    mesh = make_mesh(shape)
+    cfg = _config("sgm", W, H)
+    rect = _rectification(W, H)
+    step, shard = make_sharded_step(mesh, cfg, (W, H), Q=rect.Q,
+                                    remap_grid=rect.map_left, device=DEV)
+    src = _source(W, H)
+    pairs = [src.render(i)[:2] for i in range(frames)]
+    mine = shard(list(range(frames)))
+    L = torch.from_numpy(np.stack([pairs[i][0] for i in mine])).to(DEV)
+    R = torch.from_numpy(np.stack([pairs[i][1] for i in mine])).to(DEV)
+    step(L, R)  # warm
+    out, launches, _ = _rank_counts(lambda: step(L, R))
+    what = f"sharded step {shape} sgm-8 exact {W}x{H} D={D}"
+    _require_launched(launches, SHARDED_PATH, what, SINGLE_SGM + GENERAL)
+    ms = _rank_ms(lambda: step(L, R)) / len(mine)
+    eng = Engine(cfg, rectification=rect, source=_source(W, H), device=DEV)
+    bad = {}
+    for j, i in enumerate(mine):
+        ref = eng.process_pair(*pairs[i])
+        for k in ("disparity", "boxes", "mask", "count"):
+            if not np.array_equal(out[k][j].cpu().numpy(), getattr(ref, k)):
+                bad[f"frame {i} {k}"] = int((out[k][j].cpu().numpy()
+                                             != getattr(ref, k)).sum())
+        if ref.boxes[:, 4].sum() == 0 or (ref.disparity != -16).mean() < 0.3:
+            raise AssertionError(f"{what} frame {i}: no box or few valid pixels")
+    if bad:
+        raise AssertionError(f"{what}: differs from Engine.process_pair: {bad}")
+    return dict(what=what, mode="sharded", frames=mine, launches=launches, ms=ms)
+
+
+def _job_matcher(shape, mode, w=W, h=H, d=D):
+    """One tiled matcher on the synthetic frame's gray planes: "exact" and
+    "bm" bit for bit against the single-device port on the card; "margin"
+    (an approximation of the single device by design) bit for bit against
+    the same ranks' margin program on the host through the plain versions,
+    with its difference from the single device reported beside it: the
+    share of all pixels off by more than 1 px (tests/test_parallel.py:126-130's
+    count), those pixels in each band of 64 columns, the bad-pixel fraction
+    among pixels valid in both maps and the validity difference."""
+    import torch
+
+    from rt_depth_map_tpu_torch.metrics import bad_pixel_fraction, validity_difference
+    from rt_depth_map_tpu_torch.ops.bm import stereo_bm
+    from rt_depth_map_tpu_torch.ops.sgbm import stereo_sgbm
+    from rt_depth_map_tpu_torch.parallel import make_mesh, tiled_stereo_bm
+    from rt_depth_map_tpu_torch.parallel.exact_sgbm import exact_tiled_stereo_sgbm
+    from rt_depth_map_tpu_torch.parallel.tiled_sgbm import tiled_stereo_sgbm
+
+    mesh = make_mesh(shape)
+    lg, rg = _gray_pair(w, h)
+    if mode == "bm":
+        mcfg = _config("bm", w, h).matcher
+        fn, single, path = tiled_stereo_bm, stereo_bm, TILED_BM_PATH
+        what = f"tiled BM-{BM_D} bs {BM_BS} {shape} {w}x{h}"
+    else:
+        mcfg = _config("sgm", w, h, d).matcher
+        fn = exact_tiled_stereo_sgbm if mode == "exact" else tiled_stereo_sgbm
+        single = stereo_sgbm
+        path = EXACT_PATH if mode == "exact" else MARGIN_PATH
+        what = f"{mode} sgm-8 {shape} {w}x{h} D={d}"
+    fn(lg, rg, mcfg, mesh)  # warm
+    disp, launches, _ = _rank_counts(lambda: fn(lg, rg, mcfg, mesh))
+    _require_launched(launches, path, what,
+                      (SINGLE_SGM if mode == "exact" else ()) + GENERAL)
+    ms = _rank_ms(lambda: fn(lg, rg, mcfg, mesh))
+    ref = single(lg, rg, mcfg)
+    if mode == "margin":
+        t0 = time.perf_counter()
+        host = fn(lg.cpu(), rg.cpu(), mcfg, mesh)
+        host_s = time.perf_counter() - t0
+        if not torch.equal(disp.cpu(), host):
+            raise AssertionError(f"{what}: {int((disp.cpu() != host).sum())} pixels "
+                                 f"differ from the margin program's plain versions")
+    elif not torch.equal(disp, ref):
+        raise AssertionError(f"{what}: {int((disp != ref).sum())} pixels differ "
+                             f"from the single-device port")
+    off = (disp.long() - ref.long()).abs() > 16
+    invalid = (mcfg.min_disparity - 1) * 16
+    got_np, ref_np = disp.cpu().numpy(), ref.cpu().numpy()
+    out = dict(what=what, mode=mode, launches=launches, ms=ms)
+    if mode == "margin":
+        cols = off.sum(0).cpu().numpy()
+        out.update(host_s=host_s, all_frac=float(off.float().mean()),
+                   bands=[int(cols[i: i + 64].sum()) for i in range(0, w, 64)],
+                   bad_frac=bad_pixel_fraction(got_np, ref_np, invalid),
+                   validity=validity_difference(got_np, ref_np, invalid))
+    return out
+
+
+def _rank(rank, world, port, backend, jobs, out_dir):
+    """One rank of a phase 12 world: a spawned process on card 0 running
+    `jobs` ([(name, kwargs)]) with every plain version guarded."""
+    import faulthandler
+    import os
+
+    faulthandler.dump_traceback_later(PAR_DEADLINE, exit=True)
+    import torch.distributed as dist
+
+    import rt_depth_map_tpu_torch.parallel.pipeline_sharded  # noqa: F401
+    from rt_depth_map_tpu_torch import Engine  # noqa: F401
+    from rt_depth_map_tpu_torch.parallel import tiled_stereo_bm  # noqa: F401
+
+    _rank_setup(rank, world, port, backend)
+    fns = {"sharded": _job_sharded, "matcher": _job_matcher}
+    results = []
+    with _no_plain_on_card():
+        for name, kw in jobs:
+            results.append(fns[name](**kw))
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(results, f)
+
+
+def _world(world, backend, jobs):
+    """Spawn a world of `world` ranks on card 0 and join it under
+    PAR_DEADLINE; each rank's list of job results. A rank that fails or
+    hangs fails the phase."""
+    import multiprocessing
+    import os
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=_rank, args=(r, world, port, backend, jobs, out_dir))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        end = time.monotonic() + PAR_DEADLINE
+        for p in procs:
+            p.join(max(0.0, end - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"phase 12 {backend} world of {world}: exit codes "
+                                 f"{[p.exitcode for p in procs]}, ranks {hung} killed "
+                                 f"at the {PAR_DEADLINE} s deadline")
+        results = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    return results
+
+
+def _phase12(card):
+    """The multi-rank paths (`parallel/`): NCCL at world size 1; gloo worlds
+    of 2 and 4 ranks sharing card 0, each rank's kernels on the card, the
+    exchanges through host memory. Returns {run: rank 0's launches}."""
+    import torch
+
+    torch.cuda.empty_cache()
+    shared = "ranks time-sliced on one card, not a scaling figure"
+    runs = {}
+    t0 = time.perf_counter()
+    (r0,), = _world(1, "nccl", [("sharded", dict(shape=(1, 1), frames=1))])
+    print(f"phase 12 nccl world of 1, (1, 1) {r0['what']}: equals "
+          f"Engine.process_pair; {r0['ms']:.2f} ms a frame on {card}; "
+          f"launches {_nonzero(r0['launches'])}", flush=True)
+    runs[f"parallel nccl (1, 1) {r0['what']}"] = r0["launches"]
+
+    jobs = [("matcher", dict(shape=(1, 2), mode="exact")),
+            ("matcher", dict(shape=(1, 2), mode="bm")),
+            ("matcher", dict(shape=(1, 2), mode="margin")),
+            ("matcher", dict(shape=(1, 2), mode="exact", w=STRETCH[1], h=STRETCH[0],
+                             d=STRETCH[2])),
+            ("sharded", dict(shape=(1, 2), frames=1))]
+    res = _world(2, "gloo", jobs)
+    for j in range(len(jobs)):
+        a, b = res[0][j], res[1][j]
+        if a["mode"] == "margin":
+            verdict = (f"bit-identical to its plain versions on the host "
+                       f"({max(a['host_s'], b['host_s']):.1f} s there); against the "
+                       f"single-device port: {a['all_frac']:.6f} of all pixels off by "
+                       f"> 1 px (by 64-column band {a['bands']}), bad-pixel fraction "
+                       f"{a['bad_frac']:.6f} among pixels valid in both, validity "
+                       f"difference {a['validity']:.6f}")
+        elif a["mode"] == "sharded":
+            verdict = "equals Engine.process_pair"
+        else:
+            verdict = "bit-identical to the single-device port"
+        print(f"phase 12 gloo (1, 2) {a['what']}: {verdict} on both ranks; "
+              f"{max(a['ms'], b['ms']):.2f} ms a frame ({shared}; {card}); "
+              f"rank 0 launches {_nonzero(a['launches'])}", flush=True)
+        runs[f"parallel gloo (1, 2) {a['what']}"] = a["launches"]
+
+    res = _world(4, "gloo", [("sharded", dict(shape=(2, 2), frames=PAR_BATCH)),
+                             ("matcher", dict(shape=(1, 4), mode="exact"))])
+    frames = sorted(f for r in res for f in r[0]["frames"])
+    if frames != sorted(list(range(PAR_BATCH)) * 2):
+        raise AssertionError(f"phase 12 (2, 2): frames {frames}")
+    ms = max(r[0]["ms"] for r in res)
+    print(f"phase 12 gloo (2, 2) {res[0][0]['what']}, B={PAR_BATCH}: every frame's "
+          f"disparity, boxes, mask and count equal Engine.process_pair on all 4 "
+          f"ranks; {ms:.2f} ms a frame ({shared}; {card}); rank 0 launches "
+          f"{_nonzero(res[0][0]['launches'])}", flush=True)
+    runs[f"parallel gloo (2, 2) {res[0][0]['what']}"] = res[0][0]["launches"]
+    x = res[0][1]
+    print(f"phase 12 gloo (1, 4) {x['what']}: bit-identical to the single-device "
+          f"port on all 4 ranks; {max(r[1]['ms'] for r in res):.2f} ms a frame "
+          f"({shared}; {card}); rank 0 launches {_nonzero(x['launches'])}", flush=True)
+    runs[f"parallel gloo (1, 4) {x['what']}"] = x["launches"]
+    print(f"phase 12 total: {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
 def main() -> int:
     global PEAK_OPS
     import torch
@@ -1543,6 +1984,10 @@ def main() -> int:
           "TPU form (1152, 128, 768) int16", bound=(_nbytes(xt), _nbytes(xt), 0))
     del xt
 
+    # the exact width tiling's kernels: K3's output column window and the
+    # wavefront's scans at the 720p frame's tile shape of 2 ranks
+    _tiling_kernels(check, lrect, rrect, m)
+
     # the vertical kernel off the frame programs' shapes: D = 100 (pixels
     # that are not whole 16-byte pieces: the register path) on the odd
     # crop, and a volume wider than 16 one-column warps on each SM (H = 48,
@@ -2022,22 +2467,28 @@ def main() -> int:
     # -- 11. the entry points: the CLI, the batch mode, setters, syncs -------
     entry_runs = _entry_points(card)
 
+    # -- 12. the multi-rank paths: parallel/ on torch.distributed -----------
+    par_runs = _phase12(card)
+    tile_launches = next(v for k, v in par_runs.items() if "(2, 2)" in k)
+
     # each kernel's launches on the path that runs it: the flagship's for
     # its kernels, the stretch run's for the chained passes, the BM run's
-    # for K8, the flagship's with the post filter for the smoother (K10
-    # runs on none); launches_by_path holds every run's counts
+    # for K8, the flagship's with the post filter for the smoother, the
+    # (2, 2) sharded step's (rank 0) for the exact tiling's scans (K10 runs
+    # on none); launches_by_path holds every run's counts
     runs = {f"sgm-8 {W}x{H} D={D} (bidir)": sgm_launches,
             f"bm {W}x{H} D={BM_D}": bm_launches,
             f"sgm-8 {str_w}x{str_h} D={str_d} (chained)": str_launches,
             f"sgm-5 {W}x{H} D={D} (chained)": sgbm5_launches,
             f"bm {str_w}x{str_h} D=288 (default)": bmd_launches,
             f"sgm-8 {W}x{H} D={D} + WLS": post_runs["sgm"],
-            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"], **entry_runs}
+            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"], **entry_runs, **par_runs}
     kernels = []
     for wrapper, source, replaces in KERNELS:
         n = wrapper.__name__
         s = stats[n]
         launches = (post_runs["sgm"] if n in POST else
+                    tile_launches if n == "sgm_tile_scan" else
                     sgm_launches if n in SGM_PATH else
                     str_launches if n in CHAINED_PATH else bm_launches)[n]
         kernels.append(dict(name=n, route="cuda", source=source,

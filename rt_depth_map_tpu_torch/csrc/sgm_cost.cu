@@ -11,6 +11,11 @@
 //   C(y, j, d)   = sum over |dy|, |dx| <= bs/2 of
 //                  pix(clamp(y + dy, 0, H-1), minX1 + clamp(j + dx, 0, W1-1), d)
 //
+// for the output columns j in [x_begin, x_begin + Wout) of [0, W1): the whole
+// range (x_begin 0, Wout W1), or one tile's columns of it (the exact width
+// tiling of rt_depth_map_tpu/parallel/exact_sgbm.py:74, whose tiles keep the
+// replicate border of the whole range),
+//
 // i.e. the window replicates at the edges of the cropped range
 // [minX1, minX1 + W1), not at the image's; minX1 = max(minD + D, 0) and
 // W1 = W + min(minD, 0) - minX1 keep every right column of that range
@@ -126,7 +131,7 @@ template <typename CT, int BS>
 __global__ void __launch_bounds__(SC_ND)
 sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
                 int H, int W, int D, int minD, int minX1, int W1,
-                CT* __restrict__ out) {
+                int x_begin, int Wout, CT* __restrict__ out) {
   constexpr int W2 = ScShape<BS>::W2;
   constexpr int NE = ScShape<BS>::NE;
   constexpr int NP = ScShape<BS>::NP;
@@ -140,10 +145,11 @@ sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
   const int dhi = min(dlo + SC_ND, D);
   const int d = dlo + tid;
   const bool active = d < dhi;
-  const int j0 = blockIdx.x * SC_TX;
+  const int j0 = x_begin + blockIdx.x * SC_TX;
   const int jw0 = j0 - W2;                   // window column 0, unclamped
   const int jl0 = max(jw0, 0);               // first left column held
   const int nl = min(j0 + SC_TX + W2, W1) - jl0;
+  const int j_end = x_begin + Wout;          // the window's end
   const int lx0 = minX1 + jl0;               // its image column
   const int xr0 = lx0 - minD - (dhi - 1);    // image column of right column 0
   const int nr = nl + (dhi - dlo) - 1;
@@ -219,35 +225,37 @@ sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
 
     if (r >= 2 * W2) {
       const int yo = y0 + r - 2 * W2;  // the output row this row completes
-      CT* o = out + ((size_t)yo * W1 + j0) * D + d;
+      CT* o = out + ((size_t)yo * Wout + (j0 - x_begin)) * D + d;
 #pragma unroll
       for (int j = 0; j < SC_TX; ++j)
-        if (j0 + j < W1) o[(size_t)j * D] = (CT)(vs[j] - SC_PIX_BIAS * BS * BS);
+        if (j0 + j < j_end) o[(size_t)j * D] = (CT)(vs[j] - SC_PIX_BIAS * BS * BS);
     }
   }
 }
 
 template <typename CT, int BS>
 static cudaError_t sc_launch_bs(const void* lpl, const void* rpl, int H, int W,
-                                int D, int minD, int minX1, int W1, void* out,
-                                cudaStream_t stream) {
+                                int D, int minD, int minX1, int W1, int x_begin,
+                                int Wout, void* out, cudaStream_t stream) {
   const size_t smem = ScShape<BS>::smem;
   cudaError_t err = cudaFuncSetAttribute(
       sgm_cost_kernel<CT, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((W1 + SC_TX - 1) / SC_TX, (H + SC_R - 1) / SC_R,
+  const dim3 grid((Wout + SC_TX - 1) / SC_TX, (H + SC_R - 1) / SC_R,
                   (D + SC_ND - 1) / SC_ND);
   sgm_cost_kernel<CT, BS><<<grid, D < SC_ND ? D : SC_ND, smem, stream>>>(
-      (const uint2*)lpl, (const uint2*)rpl, H, W, D, minD, minX1, W1, (CT*)out);
+      (const uint2*)lpl, (const uint2*)rpl, H, W, D, minD, minX1, W1, x_begin,
+      Wout, (CT*)out);
   return cudaGetLastError();
 }
 
 template <typename CT>
 static cudaError_t sc_launch(const void* lpl, const void* rpl, int H, int W,
                              int D, int bs, int minD, int minX1, int W1,
-                             void* out, cudaStream_t stream) {
-#define SC_ARGS lpl, rpl, H, W, D, minD, minX1, W1, out, stream
+                             int x_begin, int Wout, void* out,
+                             cudaStream_t stream) {
+#define SC_ARGS lpl, rpl, H, W, D, minD, minX1, W1, x_begin, Wout, out, stream
   switch (bs) {
     case 1: return sc_launch_bs<CT, 1>(SC_ARGS);
     case 3: return sc_launch_bs<CT, 3>(SC_ARGS);
@@ -261,19 +269,25 @@ static cudaError_t sc_launch(const void* lpl, const void* rpl, int H, int W,
 }
 
 // lpl, rpl: (H, W, 8) uint8 plane stacks (bytes 6 and 7 zero); out:
-// (H, W1, D) int16 (out_bytes 2) or int32 (out_bytes 4) over the columns
+// (H, Wout, D) int16 (out_bytes 2) or int32 (out_bytes 4): the columns
+// [x_begin, x_begin + Wout) of the volume over the image columns
 // [minX1, minX1 + W1) at min_disparity minD. Requires 1 <= D <= 1024, odd
-// bs <= 11, and minX1 = max(minD + D, 0), W1 = W + min(minD, 0) - minX1 >= 1.
+// bs <= 11, minX1 = max(minD + D, 0), W1 = W + min(minD, 0) - minX1 >= 1 and
+// 0 <= x_begin < x_begin + Wout <= W1.
 extern "C" int rtdm_sgm_cost(const void* lpl, const void* rpl, int H, int W,
                              int D, int bs, int minD, int minX1, int W1,
-                             int out_bytes, void* out, void* stream) {
+                             int x_begin, int Wout, int out_bytes, void* out,
+                             void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   if (minX1 != (minD + D > 0 ? minD + D : 0) ||
-      W1 != W + (minD < 0 ? minD : 0) - minX1 || W1 < 1)
+      W1 != W + (minD < 0 ? minD : 0) - minX1 || W1 < 1 || x_begin < 0 ||
+      Wout < 1 || x_begin + Wout > W1)
     return (int)cudaErrorInvalidValue;
   if (out_bytes == 2)
-    return (int)sc_launch<int16_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1, out, s);
-  return (int)sc_launch<int32_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1, out, s);
+    return (int)sc_launch<int16_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1,
+                                   x_begin, Wout, out, s);
+  return (int)sc_launch<int32_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1,
+                                 x_begin, Wout, out, s);
 }
 
 extern "C" const char* rtdm_error_string(int err) {

@@ -38,6 +38,50 @@ def lr_check(disp: torch.Tensor, cost: torch.Tensor, num_disp: int,
                                                              max_diff, min_disp)
 
 
+def border_valid(ys: torch.Tensor, xs: torch.Tensor, H: int, W: int,
+                 cfg: MatcherConfig) -> torch.Tensor:
+    """The pixels StereoBM computes in an (H, W) image (the window inside
+    the rows, the search inside the columns) at the rows ys (H', 1) and the
+    columns xs (1, W') of it, int32."""
+    w2 = cfg.block_size // 2
+    maxD = cfg.min_disparity + cfg.num_disparities - 1
+    return ((ys >= w2) & (ys < H - w2) & (xs >= max(maxD, 0) + w2)
+            & (xs < W - w2))
+
+
+def winner_disparity(lp: torch.Tensor, wta, cfg: MatcherConfig,
+                     valid: torch.Tensor, cols: slice = slice(None)):
+    """(disp int16 x16, best_cost int32) at the columns `cols` of lp from K8's
+    outputs `wta` over lp's columns: the texture check, the uniqueness test
+    and the subpixel step, invalid (minD - 1) * 16 outside `valid`."""
+    D = cfg.num_disparities
+    minD = cfg.min_disparity
+    best_d, best_cost, c_m1, c_p1, min_out = (t[:, cols] for t in wta)
+    texture = box_sum_2d((lp.to(torch.int32) - cfg.pre_filter_cap).abs(),
+                         cfg.block_size)[:, cols]
+    tex_ok = texture >= cfg.texture_threshold
+
+    thresh = best_cost + (best_cost * cfg.uniqueness_ratio) // 100
+    uniq_bad = min_out <= thresh
+
+    c_m1 = torch.where(best_d == 0, c_p1, c_m1)
+    c_p1 = torch.where(best_d == D - 1, c_m1, c_p1)
+    p, n = c_m1, c_p1
+    denom = p + n - 2 * best_cost + (p - n).abs()
+    num = (p - n) * 256
+    # sign(num) * (|num| // denom): truncation toward zero, as the reference
+    delta = torch.where(
+        denom != 0,
+        torch.sign(num) * torch.div(num.abs(), denom.clamp(min=1),
+                                    rounding_mode="floor"),
+        0)
+    # ((best_d + minD) * 256 + delta + 15) >> 4, minD folded into the constant
+    packed = (best_d * 256 + delta + (minD * 256 + 15)) >> 4
+    invalid = (minD - 1) * DISP_SCALE
+    disp = torch.where(valid & tex_ok & ~uniq_bad, packed, invalid).to(torch.int16)
+    return disp, best_cost
+
+
 def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
               roi1: Optional[Tuple] = None, roi2: Optional[Tuple] = None,
               plain: bool = False,
@@ -59,13 +103,10 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
 
     lp = xsobel_prefilter(left, cfg.pre_filter_cap)
     rp = xsobel_prefilter(right, cfg.pre_filter_cap)
-    wta = bm_cost_wta_plain if plain else bm_cost_wta
-    best_d, best_cost, c_m1, c_p1, min_out = wta(lp, rp, D, bs, minD)
-
+    wta = (bm_cost_wta_plain if plain else bm_cost_wta)(lp, rp, D, bs, minD)
     ys = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
     xs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-    valid = ((ys >= w2) & (ys < H - w2) & (xs >= max(maxD, 0) + w2)
-             & (xs < W - w2))
+    valid = border_valid(ys, xs, H, W, cfg)
 
     if roi1 is not None or roi2 is not None:
         def norm(r):
@@ -86,26 +127,7 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
         rymax = torch.minimum(r1y + r1h, r2y + r2h) - w2
         valid = valid & (xs >= rxmin) & (xs < rxmax) & (ys >= rymin) & (ys < rymax)
 
-    texture = box_sum_2d((lp.to(torch.int32) - cfg.pre_filter_cap).abs(), bs)
-    tex_ok = texture >= cfg.texture_threshold
-
-    thresh = best_cost + (best_cost * cfg.uniqueness_ratio) // 100
-    uniq_bad = min_out <= thresh
-
-    c_m1 = torch.where(best_d == 0, c_p1, c_m1)
-    c_p1 = torch.where(best_d == D - 1, c_m1, c_p1)
-    p, n = c_m1, c_p1
-    denom = p + n - 2 * best_cost + (p - n).abs()
-    num = (p - n) * 256
-    # sign(num) * (|num| // denom): truncation toward zero, as the reference
-    delta = torch.where(
-        denom != 0,
-        torch.sign(num) * torch.div(num.abs(), denom.clamp(min=1),
-                                    rounding_mode="floor"),
-        0)
-    # ((best_d + minD) * 256 + delta + 15) >> 4, minD folded into the constant
-    packed = (best_d * 256 + delta + (minD * 256 + 15)) >> 4
-    disp = torch.where(valid & tex_ok & ~uniq_bad, packed, invalid).to(torch.int16)
+    disp, best_cost = winner_disparity(lp, wta, cfg, valid)
     mark("BM prefilter, K8, texture, uniqueness, subpixel")
 
     if cfg.disp12_max_diff >= 0:

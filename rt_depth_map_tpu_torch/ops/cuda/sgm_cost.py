@@ -21,6 +21,11 @@ it unpacks each staged column once for the block, computes both planes'
 BT costs in the two 16-bit halves of one word, and computes each pixel cost
 about once an output; see the source for the design.
 
+`cols=(x_begin, width)` asks for the columns [x_begin, x_begin + width)
+of that volume only, replicate border of the whole range included: the
+tile of the exact width tiling (`parallel/exact_sgbm.py`), one launch over
+the tile's columns.
+
 `sgm_cost_volume` launches the kernel for CUDA tensors and runs
 `sgm_cost_volume_plain` for CPU tensors; any other device raises.
 """
@@ -123,23 +128,40 @@ def _window_sum_replicate(x: torch.Tensor, size: int, dim: int) -> torch.Tensor:
     return acc
 
 
+def _column_window(W1: int, cols):
+    """(x_begin, width) of the output columns `cols` of [0, W1); None is the
+    whole range."""
+    x_begin, width = (0, W1) if cols is None else (int(cols[0]), int(cols[1]))
+    if not (0 <= x_begin and 1 <= width and x_begin + width <= W1):
+        raise ValueError(f"sgm_cost_volume: columns {cols} outside [0, {W1})")
+    return x_begin, width
+
+
 def sgm_cost_volume_plain(lpl: torch.Tensor, rpl: torch.Tensor,
                           num_disp: int, block_size: int,
-                          dtype: torch.dtype = torch.int32, min_disp: int = 0):
+                          dtype: torch.dtype = torch.int32, min_disp: int = 0,
+                          cols=None):
     """(C, minX1, W1) from the two `plane_stack`s: the XLA formulation of
     ops/sgbm.py `sgbm_cost_volume` at min_disparity `min_disp`, C (H, W1, D)
-    in `dtype`."""
+    in `dtype`; with cols=(x_begin, width), its columns [x_begin, x_begin +
+    width) only, (H, width, D), computed from the window columns they
+    reach (clamped into [0, W1): the replicate border)."""
     D = num_disp
     W = lpl.shape[1]
     minX1, W1 = cost_geometry(W, D, min_disp)
-    lp = lpl[:, minX1: minX1 + W1].to(torch.int32).unbind(-1)
+    x_begin, width = _column_window(W1, cols)
+    w2 = block_size // 2
+    # the W1-space columns of the horizontal windows, replicated at its edges
+    js = torch.arange(x_begin - w2, x_begin + width + w2,
+                      device=lpl.device).clamp(0, W1 - 1)
+    lp = lpl[:, minX1 + js].to(torch.int32).unbind(-1)
     rp = rpl.to(torch.int32).unbind(-1)
     # the right column of left column minX1 + j at disparity index i; the
     # cropped range keeps every one inside the image, where the reference's
     # "0 outside the image" never applies
-    xr = (torch.arange(minX1, minX1 + W1, device=lpl.device)[:, None] - min_disp
-          - torch.arange(D, device=lpl.device)[None, :])  # (W1, D)
-    if W1 > 0 and (int(xr.min()) < 0 or int(xr.max()) >= W):
+    xr = ((minX1 + js)[:, None] - min_disp
+          - torch.arange(D, device=lpl.device)[None, :])  # (columns, D)
+    if int(xr.min()) < 0 or int(xr.max()) >= W:
         raise AssertionError("sgm_cost_volume_plain: right column outside the image")
 
     def bt(l3, r3):
@@ -147,9 +169,11 @@ def sgm_cost_volume_plain(lpl: torch.Tensor, rpl: torch.Tensor,
         v, v0, v1 = (a[:, xr] for a in r3)
         return _bt(u, u0, u1, v, v0, v1)
 
-    pix = bt(lp[0:3], rp[0:3]) + (bt(lp[3:6], rp[3:6]) >> 2)  # (H, W1, D)
-    C = _window_sum_replicate(_window_sum_replicate(pix, block_size, 1),
-                              block_size, 0)
+    pix = bt(lp[0:3], rp[0:3]) + (bt(lp[3:6], rp[3:6]) >> 2)  # (H, width + 2 w2, D)
+    hsum = pix[:, :width].clone()
+    for o in range(1, 2 * w2 + 1):
+        hsum += pix[:, o: o + width]
+    C = _window_sum_replicate(hsum, block_size, 0)
     return C.to(dtype), minX1, W1
 
 
@@ -158,21 +182,23 @@ def _fn():
     fn = lib.rtdm_sgm_cost
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, I, I, I, I, I, I, I, I, P, P]
+        fn.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I, P, P]
         fn.restype = I
     return lib, fn
 
 
 def sgm_cost_volume(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
                     block_size: int, dtype: torch.dtype = torch.int32,
-                    min_disp: int = 0):
+                    min_disp: int = 0, cols=None):
     """(C, minX1, W1) from the (H, W, 8) uint8 `plane_stack`s of the left
     and right rectified images at min_disparity `min_disp`: C is (H, W1, D)
     in `dtype` (int16 or int32; the caller picks `volume_dtype`), (minX1,
-    W1) = `cost_geometry(W, D, min_disp)` (D and W - D at min_disp 0)."""
+    W1) = `cost_geometry(W, D, min_disp)` (D and W - D at min_disp 0). With
+    cols=(x_begin, width), C is (H, width, D): the columns [x_begin, x_begin
+    + width) of that volume, in one launch over those columns."""
     if lpl.device.type == "cpu":
         return sgm_cost_volume_plain(lpl, rpl, num_disp, block_size, dtype,
-                                     min_disp)
+                                     min_disp, cols)
     if lpl.device.type != "cuda":
         raise ValueError(f"sgm_cost_volume: unsupported device {lpl.device}")
     H, W = lpl.shape[:2]
@@ -183,13 +209,15 @@ def sgm_cost_volume(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
                          f"block_size={bs} at width {W}")
     if dtype not in (torch.int16, torch.int32):
         raise ValueError(f"sgm_cost_volume: dtype must be int16 or int32, got {dtype}")
+    x_begin, width = _column_window(W1, cols)
     _build.require(lpl, "lpl", torch.uint8, (H, W, 8))
     _build.require(rpl, "rpl", torch.uint8, (H, W, 8))
-    out = torch.empty((H, W1, D), dtype=dtype, device=lpl.device)
+    out = torch.empty((H, width, D), dtype=dtype, device=lpl.device)
     lib, fn = _fn()
     with torch.cuda.device(lpl.device):
         err = fn(lpl.data_ptr(), rpl.data_ptr(), H, W, D, bs, minD, minX1, W1,
-                 out.element_size(), out.data_ptr(), _build.stream_of(lpl))
+                 x_begin, width, out.element_size(), out.data_ptr(),
+                 _build.stream_of(lpl))
     sgm_cost_volume.launches += 1
     _build.check(lib, err, "sgm_cost_volume")
     return out, minX1, W1

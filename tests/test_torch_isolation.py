@@ -42,6 +42,11 @@ def test_the_walk_sees_the_port():
     assert "chip_smoke.py" in files
     assert "rt_depth_map_tpu_torch/ops/sgbm.py" in files
     assert "rt_depth_map_tpu_torch/config.py" in files
+    # the multi-rank package (its ranks also check sys.modules for JAX at
+    # run time: tests/torch_parallel_workers.py)
+    for name in ("__init__", "mesh", "launch", "tiled_bm", "tiled_sgbm",
+                 "exact_sgbm", "pipeline_sharded"):
+        assert f"rt_depth_map_tpu_torch/parallel/{name}.py" in files
     assert len(files) > 30
 
 

@@ -61,6 +61,17 @@ def stereo_pair(seed, H, W, shift):
     return base[:, :W].copy(), base[:, shift: shift + W].copy()
 
 
+def row_blur_pair(seed, H, W, shift):
+    """tests/test_parallel.py's pair: row-blurred random texture and its
+    copy shifted by `shift` columns."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, size=(H, W + 64), dtype=np.uint8).astype(np.float32)
+    k = np.ones(5) / 5.0
+    base = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1, base)
+    base = base.astype(np.uint8)
+    return base[:, :W].copy(), base[:, shift: shift + W].copy()
+
+
 def remap_grid(case, Ho=40, Wo=56, H=40, W=56):
     """(Ho, Wo, 2) float32 [x, y] map over an H x W source for the K1 tests:
     identity, shear (a fractional shift and a vertical stretch past the

@@ -115,15 +115,16 @@ def main() -> int:
     for _ in range(2):
         for tx, r in K3:
             fn = ctypes.CDLL(str(OUT / f"cost_{tx}_{r}.so")).rtdm_sgm_cost
-            fn.argtypes = [P, P, I, I, I, I, I, I, I, P, P]
+            fn.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I, P, P]
             fn.restype = I
             res = []
             for H, W, D, lpl, rpl, ref in cases:
                 out = torch.empty_like(ref)
 
                 def call():
-                    assert fn(lpl.data_ptr(), rpl.data_ptr(), H, W, D, 5, D,
-                              W - D, 2, out.data_ptr(), stream()) == 0
+                    # min_disparity 0, the whole column range [0, W - D)
+                    assert fn(lpl.data_ptr(), rpl.data_ptr(), H, W, D, 5, 0, D,
+                              W - D, 0, W - D, 2, out.data_ptr(), stream()) == 0
 
                 call()
                 torch.cuda.synchronize()
