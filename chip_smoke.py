@@ -111,12 +111,15 @@ the input's range of
 its plain version, beside one scanline alone (one thread walking the chain
 of dependent divides: the latency floor of a sweep).
 
-Phase 3 also holds the exact width tiling's two kernels at the 720p
-frame's tile shape of 2 ranks (576 of W1 = 1152 columns, 90-row blocks):
-K3's output column window against the full volume's slice on each tile,
-and `sgm_tile_scan` against its plain version in every direction, timed on
-a wavefront step of the six cross-tile directions and on the tile-local
-vertical paths.
+Phase 3 also holds the exact width tiling's kernels at the 720p frame's
+tile shape of 2 ranks (576 of W1 = 1152 columns, 90-row blocks): K3's
+output column window against the full volume's slice on each tile,
+`sgm_tile_scan` against its plain version in every cross-tile direction,
+alone and in wavefront steps (timed on the steady step of the six
+directions, whose walks meet in pairs, and on a step of four blocks), and
+`sgm_tile_final` (the tile's vertical paths and the winner-take-all,
+checked and timed in both of its modes), each also at an odd tile (97
+columns, 7-row blocks, D = 100: the kernels' register path).
 
  12. the multi-rank paths (`parallel/` on torch.distributed), each rank a
      spawned process on card 0 with every plain version guarded and its
@@ -1034,8 +1037,9 @@ TILES = 2
 #: is killed and the run fails
 PAR_DEADLINE = 420
 #: the kernels of each multi-rank path
-EXACT_PATH = ("sgm_cost_volume", "sgm_tile_scan", "lr_resolve_sgbm",
-              "seg_min_propagate", "speckle_decision", "speckle_apply")
+EXACT_PATH = ("sgm_cost_volume", "sgm_tile_scan", "sgm_tile_final",
+              "lr_resolve_sgbm", "seg_min_propagate", "speckle_decision",
+              "speckle_apply")
 SHARDED_PATH = ("rectify_pair",) + EXACT_PATH
 TILED_BM_PATH = ("bm_cost_wta", "lr_resolve_bm", "seg_min_propagate",
                  "speckle_decision", "speckle_apply")
@@ -1047,9 +1051,11 @@ PAR_BATCH = 4
 
 
 def _tiling_kernels(check, lrect, rrect, m):
-    """K3's output column window and `sgm_tile_scan` at the 720p frame's
-    n = 2 tile shape (576 of W1 = 1152 columns, 90-row blocks), against the
-    full volume's slice and the plain versions."""
+    """K3's output column window, `sgm_tile_scan` and `sgm_tile_final` at
+    the 720p frame's n = 2 tile shape (576 of W1 = 1152 columns, 90-row
+    blocks) and at an odd tile (97 columns, 7-row blocks, D = 100 at int16:
+    D-vectors that are not whole 16-byte pieces, the kernels' register
+    path), against the full volume's slice and the plain versions."""
     import torch
 
     from rt_depth_map_tpu_torch.ops import sgbm as sg
@@ -1058,15 +1064,14 @@ def _tiling_kernels(check, lrect, rrect, m):
         sgm_cost_volume_plain,
     )
     from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import (
+        FINAL_DIRS,
         ScanJob,
+        sgm_tile_final,
+        sgm_tile_final_plain,
         sgm_tile_scan,
         sgm_tile_scan_plain,
     )
-    from rt_depth_map_tpu_torch.parallel.exact_sgbm import (
-        _default_row_block,
-        cross_dirs,
-        local_dirs,
-    )
+    from rt_depth_map_tpu_torch.parallel.exact_sgbm import _default_row_block, cross_dirs
 
     dev = lrect.device
     dtype = sg.volume_dtype(BS, m.pre_filter_cap)
@@ -1091,50 +1096,90 @@ def _tiling_kernels(check, lrect, rrect, m):
           bound=(2 * H * (wloc + D + BS) * 8, _nbytes(Cw), _lanes(21 * Cw.numel(), 2)),
           plain_reps=3, primary=False)
     Ct = C[:, :wloc].contiguous()  # tile 0
+    # the odd tile: 70 rows, 97 columns and 100 disparities of the volume
+    Co = C[:70, :97, :100].contiguous()
     del C, Cw
     p1, p2 = m.p1, max(m.p2, m.p1 + 1)
-    rb = _default_row_block(H, TILES)
     g = torch.Generator(device="cpu").manual_seed(3)
 
-    def strip(rows):
-        return torch.randint(-500, 6000, (rows, D), generator=g,
+    def strip(rows, d):
+        return torch.randint(-500, 6000, (rows, d), generator=g,
                              dtype=torch.int32).to(dev)
 
-    # a steady-state step of the wavefront: every cross-tile direction of 8
-    # paths on its block (k = 4 from the left, 3 from the right), random
-    # carries; then the first step's tile-local vertical paths
-    jobs = []
-    for dy, dx in cross_dirs(8):
-        k = 4 if dx == 1 else 3
-        start = H - (k + 1) * rb if dy == -1 else k * rb
-        jobs.append(ScanJob(dy, dx, start, rb, strip(rb + 1), strip(rb + 1), strip(wloc)))
-    local = [ScanJob(dy, dx, 0, H) for dy, dx in local_dirs(8)]
-    for job in jobs + local:
-        S0 = torch.zeros(Ct.shape, dtype=torch.int32, device=dev)
-        S1 = S0.clone()
-        err = _max_abs_err(_flat(S0, sgm_tile_scan(Ct, S0, [job], p1, p2)),
-                           _flat(S1, sgm_tile_scan_plain(Ct, S1, [job], p1, p2)))
-        if err:
-            raise AssertionError(f"sgm_tile_scan ({job.dy}, {job.dx}) {what}: kernel "
-                                 f"!= plain (max |err| {err})")
-        print(f"phase 3 sgm_tile_scan direction ({job.dy}, {job.dx}) rows "
-              f"[{job.row0}, {job.row0 + job.rows}) {what}: exact", flush=True)
-    del S0, S1
-    for name, js in (("a wavefront step, 6 directions", jobs),
-                     ("the tile-local vertical paths", local)):
-        Sk = torch.zeros(Ct.shape, dtype=torch.int32, device=dev)
-        elems = sum(j.rows for j in js) * wloc * D
+    def step_jobs(Cv, rb, kf, kb):
+        """A wavefront step of 8 paths on tile 0 of 2: every cross-tile
+        direction on its block (k = kf from the left, kb from the right),
+        random carries."""
+        h, w, d = Cv.shape
+        jobs = []
+        for dy, dx in cross_dirs(8):
+            k = kf if dx == 1 else kb
+            start = h - (k + 1) * rb if dy == -1 else k * rb
+            jobs.append(ScanJob(dy, dx, start, rb, strip(rb + 1, d), strip(rb + 1, d),
+                                strip(w, d)))
+        return jobs
+
+    rb = _default_row_block(H, TILES)
+    # the steady step (k = 4 from the left, 3 from the right: the top-down
+    # walk of each family meets the other's bottom-up walk on its block),
+    # and a step whose four walks lie on four blocks (k = 2, 1)
+    steady, apart = step_jobs(Ct, rb, 4, 3), step_jobs(Ct, rb, 2, 1)
+    # the odd tile's 10 blocks: k = 5, 4 pairs the walks there too (W = 97:
+    # the middle column)
+    odd = step_jobs(Co, 7, 5, 4)
+    # each cross-tile direction alone (the vertical ones are sgm_tile_final's)
+    for Cv, where, jobs in ((Ct, what, steady), (Co, "odd tile 70x97 D=100", odd)):
+        for job in jobs:
+            S0 = torch.zeros(Cv.shape, dtype=torch.int32, device=dev)
+            S1 = S0.clone()
+            err = _max_abs_err(_flat(S0, sgm_tile_scan(Cv, S0, [job], p1, p2)),
+                               _flat(S1, sgm_tile_scan_plain(Cv, S1, [job], p1, p2)))
+            if err:
+                raise AssertionError(f"sgm_tile_scan ({job.dy}, {job.dx}) {where}: "
+                                     f"kernel != plain (max |err| {err})")
+            print(f"phase 3 sgm_tile_scan direction ({job.dy}, {job.dx}) rows "
+                  f"[{job.row0}, {job.row0 + job.rows}) {where}: exact", flush=True)
+        del S0, S1
+    for Cv, name, js, timed in ((Ct, f"{what}, a wavefront step, 6 directions", steady, True),
+                                (Ct, f"{what}, a step on four blocks", apart, True),
+                                (Co, "odd tile 70x97 D=100, a wavefront step", odd, False)):
+        Sk = torch.zeros(Cv.shape, dtype=torch.int32, device=dev)
+        elems = sum(j.rows for j in js) * Cv.shape[1] * Cv.shape[2]
         # the function's floor: C read once and S read and written once for
         # each distinct row block the directions cover (directions that share
         # a block add into S in one pass; the carries are ~1%); ~8 int32
         # operations an element and direction
-        block = sum(rows for _, rows in {(j.row0, j.rows) for j in js}) * wloc * D
-        check(sgm_tile_scan, lambda js=js, Sk=Sk: _flat(Sk, sgm_tile_scan(Ct, Sk, js, p1, p2)),
-              lambda js=js: _flat(*_plain_scan(Ct, js, p1, p2)),
-              f"{what}, {name}",
-              bound=(block * (Ct.element_size() + 4), block * 4, _lanes(8 * elems, 4)),
-              plain_reps=1)
+        block = sum(rows for _, rows in {(j.row0, j.rows) for j in js}) * Cv.shape[1] * Cv.shape[2]
+        check(sgm_tile_scan, lambda js=js, Sk=Sk, Cv=Cv: _flat(Sk, sgm_tile_scan(Cv, Sk, js, p1, p2)),
+              lambda js=js, Cv=Cv: _flat(*_plain_scan(Cv, js, p1, p2)), name,
+              bound=(block * (Cv.element_size() + 4), block * 4, _lanes(8 * elems, 4)),
+              plain_reps=1, timed=timed, primary=name.endswith("6 directions"))
         del Sk
+    # the tile's last launch: its vertical paths (both senses at 8 paths,
+    # the top-down one at 5 and 4) and the winner-take-all, on a sum S of
+    # the other directions (the kernel uses S as scratch: each checked call
+    # gets a copy; the timed calls reuse one buffer)
+    for Cv, where in ((Ct, what), (Co, "odd tile 70x97 D=100")):
+        S0 = torch.randint(0, 60000, Cv.shape, generator=g, dtype=torch.int32).to(dev)
+        Sk = S0.clone()
+        n = Cv.numel()
+        for dirs in FINAL_DIRS[::-1]:
+            name = (f"{where}, the vertical paths {'+ and -' if len(dirs) == 2 else '+'} "
+                    f"+ winner-take-all")
+            check(sgm_tile_final,
+                  lambda Cv=Cv, S0=S0, dirs=dirs: sgm_tile_final(Cv, S0.clone(), p1, p2,
+                                                                 m.uniqueness_ratio, dirs),
+                  lambda Cv=Cv, S0=S0, dirs=dirs: sgm_tile_final_plain(
+                      Cv, S0.clone(), p1, p2, m.uniqueness_ratio, dirs), name,
+                  # C and S read once, the four (H, W) maps written once;
+                  # ~8 int32 operations an element and direction, ~6 for the
+                  # winner-take-all
+                  bound=(_nbytes(Cv, S0), 16 * n // Cv.shape[2],
+                         _lanes((8 * len(dirs) + 6) * n, 4)),
+                  plain_reps=1, timed=Cv is Ct,
+                  time_fn=lambda Cv=Cv, Sk=Sk, dirs=dirs: sgm_tile_final(
+                      Cv, Sk, p1, p2, m.uniqueness_ratio, dirs))
+        del S0, Sk
     torch.cuda.empty_cache()
 
 
@@ -1577,13 +1622,14 @@ def main() -> int:
     stats = {}
 
     def check(wrapper, kernel_fn, plain_fn, what, bound=None, library_fn=None,
-              plain_reps=15, timed=True, primary=True, tol=0):
+              plain_reps=15, timed=True, primary=True, tol=0, time_fn=None):
         """Exact equality (float outputs: within tol), then timing
         (timed=False: a variant case, checked only); the first timed primary
         case of a kernel is the one its summary reports, and every timed case
         is listed under its `cases` (bound: (in_bytes, out_bytes, ops);
         library_fn: one PyTorch call computing the same function, timed
-        beside every timed case that has one)."""
+        beside every timed case that has one; time_fn: the call timed, where
+        the checked one copies an input that the kernel overwrites)."""
         err = _max_abs_err(kernel_fn(), plain_fn())
         if err > tol:
             raise AssertionError(f"{wrapper.__name__} {what}: kernel != plain "
@@ -1593,9 +1639,10 @@ def main() -> int:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
             print(f"phase 3 {wrapper.__name__} {what}: exact", flush=True)
             return
-        ms = _time_ms(kernel_fn)
-        ms_b2b = _b2b_ms(kernel_fn)
-        device_ms = _device_busy(kernel_fn, frames=20)[0]
+        timed_fn = time_fn or kernel_fn
+        ms = _time_ms(timed_fn)
+        ms_b2b = _b2b_ms(timed_fn)
+        device_ms = _device_busy(timed_fn, frames=20)[0]
         plain_ms = _time_ms(plain_fn, reps=plain_reps, warm=1)
         b_ms, b_by = _bound(*bound)
         lib_ms = _time_ms(library_fn) if library_fn is not None else None
@@ -2488,7 +2535,7 @@ def main() -> int:
         n = wrapper.__name__
         s = stats[n]
         launches = (post_runs["sgm"] if n in POST else
-                    tile_launches if n == "sgm_tile_scan" else
+                    tile_launches if n in ("sgm_tile_scan", "sgm_tile_final") else
                     sgm_launches if n in SGM_PATH else
                     str_launches if n in CHAINED_PATH else bm_launches)[n]
         kernels.append(dict(name=n, route="cuda", source=source,

@@ -28,7 +28,7 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
     sgm_vert_pass,
 )
 from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz  # noqa: F401
-from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import sgm_tile_scan  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import sgm_tile_final, sgm_tile_scan  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import vol_transpose  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.wls import tridiag_smooth  # noqa: F401
@@ -79,6 +79,10 @@ KERNELS = (
     # no TPU kernel: the exact width tiling's scans, lax.scans under XLA
     (sgm_tile_scan, "rt_depth_map_tpu_torch/csrc/sgm_tile.cu",
      "no Pallas kernel: lax.scan, rt_depth_map_tpu/parallel/exact_sgbm.py:159-184"),
+    # no TPU kernel: the tile-local vertical paths (lax.scans) and the
+    # winner-take-all of the exact tiling, under XLA
+    (sgm_tile_final, "rt_depth_map_tpu_torch/csrc/sgm_tile.cu",
+     "no Pallas kernel: lax.scan and XLA, rt_depth_map_tpu/parallel/exact_sgbm.py:337-343"),
 )
 
 

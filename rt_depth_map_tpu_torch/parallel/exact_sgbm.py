@@ -30,16 +30,20 @@ i (right-to-left directions run the mirror wavefront from the last tile),
 so K + n - 1 steps in all. Each step first exchanges last step's outboxes,
 one `batch_isend_irecv` per direction family, posted by every rank in
 every step, then scans the active directions' row blocks: one launch of
-`sgm_tile_scan` (`ops/cuda/sgm_tile.py`) a step, the tile-local vertical
-paths in the first one. The message layout (an (Rb + 1, D) strip a
-direction in global row order), the carries, the direction lists and the
-default row block are the reference's; a rank skips the scans of its
-inactive directions, whose outboxes stay as they were (the reference
-computes them and masks with `active`).
+`sgm_tile_scan` (`ops/cuda/sgm_tile.py`) a step with any active direction
+(the directions on one block in one sense share a walk, each element of S
+has one writer). The message layout (an (Rb + 1, D) strip a direction in
+global row order), the carries, the direction lists and the default row
+block are the reference's; a rank skips the scans of its inactive
+directions, whose outboxes stay as they were (the reference computes them
+and masks with `active`).
 
-Then the winner-take-all, uniqueness and subpixel step on the tile
-(`wta_uniq_subpix`), all-gathers of disp1, best and minS, K6's SGBM entry
-and the speckle filter (K2, K7) on the gathered maps, replicated.
+Then the tile's last launch, `sgm_tile_final`: the tile-local vertical
+paths and the winner-take-all, uniqueness and subpixel step on the tile
+from registers (the reference's `_aggregate_dir` calls and
+`wta_uniq_subpix`); so a rank makes at most K + n launches a frame. Then
+all-gathers of disp1, best and minS, K6's SGBM entry and the speckle filter
+(K2, K7) on the gathered maps, replicated.
 """
 
 from __future__ import annotations
@@ -55,8 +59,7 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
     sgm_cost_volume,
     volume_dtype,
 )
-from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import ScanJob, sgm_tile_scan
-from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import wta_uniq_subpix
+from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import ScanJob, sgm_tile_final, sgm_tile_scan
 from rt_depth_map_tpu_torch.ops.sgbm import DISP_SCALE, lr_check_sgbm, path_count
 from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
 from rt_depth_map_tpu_torch.parallel.mesh import Mesh
@@ -95,9 +98,9 @@ def _tile_cost_volume(lF: torch.Tensor, rF: torch.Tensor, cfg: MatcherConfig,
 
 def _exact_aggregate(C_loc: torch.Tensor, p1: int, p2: int, num_paths: int,
                      mesh: Mesh, space_axis: str, Rb: int) -> torch.Tensor:
-    """S (H, Wloc, D) int32: the sum of every direction's L on this tile,
-    the tile-local vertical paths and the cross-tile wavefront
-    (exact_sgbm.py:187-290)."""
+    """S (H, Wloc, D) int32: the sum of the cross-tile directions' L on
+    this tile, the wavefront of exact_sgbm.py:187-290 (the tile-local
+    vertical paths are `sgm_tile_final`'s)."""
     H, Wloc, D = C_loc.shape
     if H % Rb:
         raise ValueError(f"row_block {Rb} does not divide H={H}")
@@ -123,9 +126,7 @@ def _exact_aggregate(C_loc: torch.Tensor, p1: int, p2: int, num_paths: int,
                              space_axis, step)
                 for j, i in enumerate(family):
                     inboxes[i] = got[j]
-        jobs = ([ScanJob(dy, dx, 0, H) for dy, dx in local_dirs(num_paths)]
-                if t == 0 else [])
-        active = []
+        jobs, active = [], []
         for i, (dy, dx) in enumerate(dirs):
             k = t - (idx if dx == 1 else n - 1 - idx)
             if not 0 <= k < K:
@@ -137,7 +138,7 @@ def _exact_aggregate(C_loc: torch.Tensor, p1: int, p2: int, num_paths: int,
         if not jobs:
             continue
         results = sgm_tile_scan(C_loc, S, jobs, p1, p2)
-        for i, (out, prev) in zip(active, results[len(jobs) - len(active):]):
+        for i, (out, prev) in zip(active, results):
             outboxes[i] = out
             prevs[i] = prev
     return S
@@ -183,11 +184,12 @@ def exact_sgbm_tile_program(
     idx = mesh.axis_index(space_axis)
 
     C_loc = _tile_cost_volume(lF, rF, cfg, idx, Wloc)
-    S = _exact_aggregate(C_loc, p1, p2, path_count(cfg.num_paths), mesh,
-                         space_axis, Rb)
-    del C_loc
-    best, minS, dval, bad_uniq = wta_uniq_subpix(S, cfg.uniqueness_ratio)
-    del S
+    paths = path_count(cfg.num_paths)
+    S = _exact_aggregate(C_loc, p1, p2, paths, mesh, space_axis, Rb)
+    best, minS, dval, bad_uniq = sgm_tile_final(C_loc, S, p1, p2,
+                                                cfg.uniqueness_ratio,
+                                                local_dirs(paths))
+    del C_loc, S
     dval = dval + minD * DISP_SCALE
     disp1_loc = torch.where(bad_uniq != 0, invalid, dval).to(torch.int16)
 

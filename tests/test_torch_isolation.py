@@ -1,6 +1,7 @@
 """The port stands alone: no module of rt_depth_map_tpu_torch/, and nothing in
-chip_smoke.py, imports `jax` or the JAX package `rt_depth_map_tpu`, at the
-top of a module or inside a function. Checked on the syntax tree, so an
+chip_smoke.py or the port's timing tools (tools/time_torch_*.py,
+tools/torch_timing.py), imports `jax` or the JAX package `rt_depth_map_tpu`,
+at the top of a module or inside a function. Checked on the syntax tree, so an
 import that only runs on the card is caught too."""
 
 import ast
@@ -14,6 +15,9 @@ FORBIDDEN = ("jax", "jaxlib", "rt_depth_map_tpu")
 
 def _port_files():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    tools = os.path.join(REPO, "tools")
+    files += [os.path.join(tools, n) for n in sorted(os.listdir(tools))
+              if n.startswith(("time_torch_", "torch_timing")) and n.endswith(".py")]
     for root, _, names in os.walk(os.path.join(REPO, "rt_depth_map_tpu_torch")):
         files += [os.path.join(root, n) for n in sorted(names) if n.endswith(".py")]
     return files
@@ -42,6 +46,8 @@ def test_the_walk_sees_the_port():
     assert "chip_smoke.py" in files
     assert "rt_depth_map_tpu_torch/ops/sgbm.py" in files
     assert "rt_depth_map_tpu_torch/config.py" in files
+    assert "tools/time_torch_tile.py" in files
+    assert "tools/torch_timing.py" in files
     # the multi-rank package (its ranks also check sys.modules for JAX at
     # run time: tests/torch_parallel_workers.py)
     for name in ("__init__", "mesh", "launch", "tiled_bm", "tiled_sgbm",

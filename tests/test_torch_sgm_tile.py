@@ -1,11 +1,14 @@
-"""The exact width tiling's two kernels, plain versions against the JAX
+"""The exact width tiling's kernels, plain versions against the JAX
 package: `sgm_tile_scan` (ops/cuda/sgm_tile.py) against the reference's
 `_diag_core` and `_horiz_core` (rt_depth_map_tpu/parallel/exact_sgbm.py)
 and `_aggregate_dir` (ops/sgbm.py) on random blocks and carries, in every
-direction; K3's output column window (`sgm_cost_volume(..., cols=...)`)
-against the sliced full volume and the JAX cost volume. Every comparison
-is bit for bit. The kernels themselves are held against these plain
-versions on the card (`chip_smoke.py` phase 3; tests/test_torch_sgm_tile_cuda.py)."""
+direction; `sgm_tile_final` against `_aggregate_dir` over the tile's
+vertical directions and `wta_uniq_subpix`; K3's output column window
+(`sgm_cost_volume(..., cols=...)`) against the sliced full volume and the
+JAX cost volume. Every comparison is bit for bit. `scan_plan`, which
+groups a launch's jobs for the scan kernel, is checked here too. The
+kernels themselves are held against these plain versions on the card
+(`chip_smoke.py` phase 3; tests/test_torch_sgm_tile_cuda.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +25,15 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
 )
 from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import (
     ScanJob,
+    GROUP_ROWS,
+    Walk,
+    scan_plan,
+    scratch_layout,
+    sgm_tile_final,
+    sgm_tile_final_plain,
     sgm_tile_scan,
     sgm_tile_scan_plain,
+    unit_blocks,
 )
 
 P1, P2 = 72, 288
@@ -120,6 +130,115 @@ def test_jobs_of_one_launch_add_up():
     for job in jobs[::-1]:
         sgm_tile_scan_plain(C, S2, [job], P1, P2)
     assert torch.equal(S, S2)
+
+
+@pytest.mark.parametrize("blocks,pairs,waits", [
+    # n = 1: the top-down families on one block, the bottom-up on another
+    ((0, 0, 0, 0, 6, 6), [((1, 1, 0, 2), (-1, 1, 1, 3)), ((1, -1, -1, 4), (-1, -1, -1, 5))],
+     [(), ()]),
+    # all six on one block: two pairs, the second after the first
+    ((3, 3, 3, 3, 3, 3), [((1, 1, 0, 2), (-1, 1, 1, 3)), ((1, -1, -1, 4), (-1, -1, -1, 5))],
+     [(), (0,)]),
+])
+def test_opposite_senses_on_the_same_rows_add_up(blocks, pairs, waits):
+    """A launch whose jobs cover the same rows in opposite senses (as at
+    n = 1; and all six on one block): `scan_plan` puts every job in one
+    walk, pairs the walks of opposite horizontal senses on each block (they
+    meet in the middle column) and orders units whose rows meet, so each
+    element of S has one writer at a time. The kernel's sums are held
+    against the jobs one after another on the card
+    (tests/test_torch_sgm_tile_cuda.py, `test_scan_opposite_senses_on_cuda`)."""
+    R = 6
+    units = scan_plan([ScanJob(dy, dx, a, R) for (dy, dx), a in zip(DIRS, blocks)])
+    assert [u.walks for u in units] == [tuple(Walk(*w) for w in p) for p in pairs]
+    assert [u.waits for u in units] == waits
+    assert sorted(i for u in units for w in u.walks for i in (w.h, w.d) if i >= 0) == list(
+        range(len(DIRS)))
+
+
+def test_scan_plan_walks_pairs_and_waits():
+    """Same rows, same sense: one walk ((0, +1) with (+1, +1)); same rows,
+    opposite horizontal senses: a pair; overlapping units wait for the
+    earlier ones; a vertical job is refused (`sgm_tile_final` runs it)."""
+    J = ScanJob
+    step = [J(0, 1, 40, 10), J(1, 1, 40, 10), J(-1, 1, 30, 10), J(0, -1, 30, 10),
+            J(1, -1, 30, 10), J(-1, -1, 40, 10)]
+    units = scan_plan(step)
+    assert [(u.row0, u.rows, u.walks, u.waits) for u in units] == [
+        (40, 10, (Walk(1, 1, 0, 1), Walk(-1, -1, -1, 5)), ()),
+        (30, 10, (Walk(1, -1, -1, 2), Walk(-1, 1, 3, 4)), ())]
+    # four walks on one block: two pairs, the second after the first; a
+    # horizontal job joins the top-down walk of its sense; one on other
+    # rows walks alone and waits for the units its rows meet
+    units = scan_plan([J(dy, dx, 5, 7) for dy, dx in DIRS] + [J(0, 1, 0, 20)])
+    assert [u.walks for u in units] == [
+        (Walk(1, 1, 0, 2), Walk(-1, 1, 1, 3)), (Walk(1, -1, -1, 4), Walk(-1, -1, -1, 5)),
+        (Walk(1, 1, 6, -1),)]
+    assert [u.waits for u in units] == [(), (0,), (0, 1)]
+    with pytest.raises(ValueError, match="vertical"):
+        scan_plan([J(0, 1, 0, 4), J(1, 0, 0, 20)])
+    # a horizontal job with no diagonal on its rows walks alone
+    units = scan_plan([J(0, -1, 0, 3), J(-1, -1, 3, 3)])
+    assert [u.walks for u in units] == [(Walk(-1, 1, 0, -1),), (Walk(-1, -1, -1, 1),)]
+    assert [u.waits for u in units] == [(), ()]
+
+
+def test_scratch_layout_counts_blocks_and_carry_slots():
+    """A block a group of GROUP_ROWS rows of each walk; a done and a
+    meeting word a block, then the carry slots of each diagonal walk's
+    groups, on 16 bytes."""
+    J = ScanJob
+    assert GROUP_ROWS == 4
+    W, D = 10, 8
+    units = scan_plan([J(0, 1, 0, 9), J(1, 1, 0, 9), J(-1, -1, 0, 9), J(1, -1, 2, 5)])
+    assert [unit_blocks(u) for u in units] == [6, 2]
+    flags, bufs, words = scratch_layout(units, W, D)
+    assert flags == 16
+    assert bufs == [[16, 16 + 3 * W * D], [16 + 6 * W * D]]
+    assert words == 16 + 8 * W * D
+    units = scan_plan([J(1, 1, 0, 9), J(0, -1, 0, 4)])
+    assert [unit_blocks(u) for u in units] == [3, 1]
+    assert scratch_layout(units, 3, 1) == (8, [[8], [0]], 18)
+
+
+def _jfinal(C, S, dirs, ur):
+    ref = np.asarray(S).copy()
+    for dy, dx in dirs:
+        ref += np.asarray(jax.jit(jsgbm._aggregate_dir, static_argnums=(1, 2, 3, 4))(
+            jnp.asarray(C), P1, P2, dy, dx))
+    return [np.asarray(t) for t in jax.jit(jsgbm.wta_uniq_subpix, static_argnums=1)(
+        jnp.asarray(ref), ur)]
+
+
+@pytest.mark.parametrize("dirs", [((1, 0),), ((1, 0), (-1, 0))])
+@pytest.mark.parametrize("D,dtype", [(16, np.int16), (48, np.int16), (16, np.int32),
+                                     (48, np.int32)])
+def test_final_matches_aggregate_dir_and_wta(dirs, D, dtype):
+    """The tile's vertical paths (the top-down one alone for 5 and 4 paths)
+    and the winner-take-all: `sgm_tile_final`'s plain version against the
+    reference's `_aggregate_dir` and `wta_uniq_subpix`."""
+    H, W = 13, 11
+    rng = np.random.default_rng(D + len(dirs))
+    C = rng.integers(0, 2000, (H, W, D)).astype(dtype)
+    S0 = rng.integers(0, 20000, (H, W, D)).astype(np.int32)
+    ref = _jfinal(C, S0, dirs, 10)
+    got = sgm_tile_final(torch.from_numpy(C), torch.from_numpy(S0.copy()), P1, P2, 10,
+                         dirs)
+    for g, r, name in zip(got, ref, ("best", "minS", "dval", "uniq")):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), r.astype(np.int32), err_msg=name)
+
+
+def test_final_refuses_other_directions_and_devices():
+    C = torch.zeros((4, 3, 8), dtype=torch.int16)
+    S = torch.zeros((4, 3, 8), dtype=torch.int32)
+    for dirs in [((-1, 0),), ((1, 1),), ((1, 0), (1, 0))]:
+        with pytest.raises(ValueError, match="directions"):
+            sgm_tile_final_plain(C, S, P1, P2, 10, dirs)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sgm_tile_final(C.to("meta"), S.to("meta"), P1, P2, 10, ((1, 0),))
+    with pytest.raises(ValueError, match="unsupported device"):
+        sgm_tile_scan(C.to("meta"), S.to("meta"), [ScanJob(0, 1, 0, 4)], P1, P2)
 
 
 def _planes(seed, H, W):
