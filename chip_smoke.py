@@ -116,8 +116,9 @@ tile shape of 2 ranks (576 of W1 = 1152 columns, 90-row blocks): K3's
 output column window against the full volume's slice on each tile,
 `sgm_tile_scan` against its plain version in every cross-tile direction,
 alone and in wavefront steps (timed on the steady step of the six
-directions, whose walks meet in pairs, and on a step of four blocks), and
-`sgm_tile_final` (the tile's vertical paths and the winner-take-all,
+directions, whose jobs of opposite senses add into the same blocks, and on
+a step of four blocks; the steady step also captured in a CUDA graph and
+replayed, against the eager call), and `sgm_tile_final` (the tile's vertical paths and the winner-take-all,
 checked and timed in both of its modes), each also at an odd tile (97
 columns, 7-row blocks, D = 100: the kernels' register path).
 
@@ -1048,6 +1049,22 @@ MARGIN_PATH = ("sgm_cost_volume", "lr_resolve_sgbm", "seg_min_propagate",
 SINGLE_SGM = BIDIR + ("sgm_horiz_pass", "sgm_vert_pass", "sgm_final_wta")
 #: frames of the (2, 2) sharded step (dryrun_multichip's B = 2 x data)
 PAR_BATCH = 4
+#: the exact tiling's kernels' designs and the basis of their bounds, for
+#: their entries in the kernels line
+TILE_DESIGN = {
+    "sgm_tile_scan": "a warp a line (a row or a diagonal of a job), D over its "
+                     "lanes; costs copied 7 pixels ahead into a per-warp cp.async "
+                     "ring (8 slots; a register path where a pixel's costs are not "
+                     "whole 16-byte pieces); L staged in shared memory and added "
+                     "into S with atomic adds (REDG), 32 consecutive words an "
+                     "instruction; one ordinary launch a wavefront step, capturable "
+                     "in a CUDA graph. Bound: C read once, S read and written once "
+                     "for each distinct row block of the step",
+    "sgm_tile_final": "two warps a column meeting in the middle row (one at 5 "
+                      "and 4 paths), fed from cp.async rings, ending each pixel in "
+                      "the winner-take-all. Bound: C and S read once, the four "
+                      "maps written once",
+}
 
 
 def _tiling_kernels(check, lrect, rrect, m):
@@ -1121,11 +1138,10 @@ def _tiling_kernels(check, lrect, rrect, m):
 
     rb = _default_row_block(H, TILES)
     # the steady step (k = 4 from the left, 3 from the right: the top-down
-    # walk of each family meets the other's bottom-up walk on its block),
-    # and a step whose four walks lie on four blocks (k = 2, 1)
+    # jobs of each family and the other's bottom-up job on one block), and a
+    # step whose directions lie on four blocks (k = 2, 1)
     steady, apart = step_jobs(Ct, rb, 4, 3), step_jobs(Ct, rb, 2, 1)
-    # the odd tile's 10 blocks: k = 5, 4 pairs the walks there too (W = 97:
-    # the middle column)
+    # the odd tile's 10 blocks: k = 5, 4 shares blocks there too
     odd = step_jobs(Co, 7, 5, 4)
     # each cross-tile direction alone (the vertical ones are sgm_tile_final's)
     for Cv, where, jobs in ((Ct, what, steady), (Co, "odd tile 70x97 D=100", odd)):
@@ -1155,6 +1171,27 @@ def _tiling_kernels(check, lrect, rrect, m):
               bound=(block * (Cv.element_size() + 4), block * 4, _lanes(8 * elems, 4)),
               plain_reps=1, timed=timed, primary=name.endswith("6 directions"))
         del Sk
+    # the steady step captured in a CUDA graph and replayed twice, S reset
+    # between the replays: equal to the eager call (a launch keeps nothing
+    # between calls)
+    S0 = torch.randint(-5000, 5000, Ct.shape, generator=g, dtype=torch.int32).to(dev)
+    S_eager = S0.clone()
+    eager = _flat(S_eager, sgm_tile_scan(Ct, S_eager, steady, p1, p2))
+    S_graph = S0.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = _flat(S_graph, sgm_tile_scan(Ct, S_graph, steady, p1, p2))
+    for _ in range(2):
+        S_graph.copy_(S0)
+        graph.replay()
+        err = _max_abs_err(captured, eager)
+        if err:
+            raise AssertionError(f"sgm_tile_scan {what}: a replayed CUDA graph of the "
+                                 f"steady step != the eager call (max |err| {err})")
+    print(f"phase 3 sgm_tile_scan {what}: the steady step captured in a CUDA graph, "
+          f"replayed twice, equals the eager call; a replay {_b2b_ms(graph.replay):.4f} "
+          f"ms back to back", flush=True)
+    del graph, captured, eager, S0, S_eager, S_graph
     # the tile's last launch: its vertical paths (both senses at 8 paths,
     # the top-down one at 5 and 4) and the winner-take-all, on a sum S of
     # the other directions (the kernel uses S as scratch: each checked call
@@ -2546,6 +2583,8 @@ def main() -> int:
                             ms_b2b=s["ms_b2b"], device_ms=s["device_ms"],
                             launches_by_path={k: v[n] for k, v in runs.items()},
                             cases=s["cases"]))
+        if n in TILE_DESIGN:
+            kernels[-1]["design"] = TILE_DESIGN[n]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

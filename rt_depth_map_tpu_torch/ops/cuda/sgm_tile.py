@@ -9,17 +9,15 @@ exact_sgbm.py:159-184) and its vertical paths with `ops/sgbm.py`
 launches a 720p frame. Two entry points:
 
 - `sgm_tile_scan` runs a list of `ScanJob`s, one wavefront step of the
-  tile's directions, in one cooperative launch. The jobs that scan the same
-  rows in the same sense share one walk ((0, +1) with (+1, +1), (0, -1)
-  with (+1, -1)): a warp a row, D over its lanes, every row of the walk
-  stepping its columns in lockstep so that the diagonal carry passes
-  between neighbour rows through shared memory (and between groups of rows
-  through tagged words in device memory); two walks on the same rows in
-  opposite horizontal senses meet in the middle column as K4's chains do;
-  walks that overlap otherwise wait for the earlier ones. Each element of S
-  has one writer at a time, so no atomics; every pixel's costs and sums are
-  copied ahead with cp.async. `scan_plan` (pure) groups the jobs. It takes
-  no vertical job (dx = 0) on the card: those are `sgm_tile_final`'s.
+  tile's cross-tile directions, in one ordinary launch: a warp a line (a
+  row of a horizontal job, a diagonal of a diagonal one), D over its lanes,
+  each warp's next costs copied ahead into a ring in shared memory with
+  cp.async, its L staged in shared memory and added into S with atomic
+  adds, 32 consecutive words an instruction (the jobs of a launch may
+  cover the same pixels; integer sums do not depend on the order, so S is
+  exact). It takes no vertical job (dx = 0) on the card: those are
+  `sgm_tile_final`'s. Nothing is kept between launches, so a step can be
+  captured in a CUDA graph.
 - `sgm_tile_final` runs the tile's vertical paths ((+1, 0), and (-1, 0) at
   8 paths) and the winner-take-all in one launch: two warps a column walk
   down and up and meet in the middle row, the second halves end each
@@ -48,17 +46,6 @@ Both wrappers launch their kernel for CUDA tensors and run their plain
 version (`sgm_tile_scan_plain`, the reference's scans on `sgm_horiz.py`
 `sgm_step`, every direction; `sgm_tile_final_plain`, those scans then
 `wta_uniq_subpix`) for CPU tensors; any other device raises.
-
-The scan kernel's waits between blocks (the carry words between groups of
-rows, the meeting and done words) read words in a scratch buffer tagged
-with the launch's tag, which the wrapper hands out, a new one a launch.
-So `sgm_tile_scan` refuses to be captured in a CUDA graph (a replay would
-reuse the tag and read stale words as fresh). The scratch is one buffer
-for each (device, stream), kept for the life of the process and only
-grown: a whole row of int64 words a column and disparity for each group of
-4 rows of each diagonal walk, ceil(rows / 4) * W * D * 8 bytes a walk. At
-720p, D = 128 and four diagonal walks a launch, that is 54 MB at the tile
-of 2, 212 MB at n = 1 and 14 MB at n = 4.
 """
 
 from __future__ import annotations
@@ -176,120 +163,6 @@ def _check(C: torch.Tensor, S: torch.Tensor, jobs: Sequence[ScanJob],
                 _build.require(t, name, torch.int32, shape)
 
 
-@dataclasses.dataclass(frozen=True)
-class Walk:
-    """Jobs of one launch that scan the same rows in the same sense: a
-    horizontal job `h` and a diagonal job `d` (indices into the launch's
-    jobs, -1: none), columns in sense dx, rows in sense vs (+1 top-down)."""
-
-    dx: int
-    vs: int
-    h: int
-    d: int
-
-
-@dataclasses.dataclass(frozen=True)
-class Unit:
-    """The kernel's unit of work over rows [row0, row0 + rows): one walk, or
-    two walks in opposite horizontal senses that meet in the middle column
-    (`walks`); `waits`: the earlier units on the same rows, which finish
-    first."""
-
-    row0: int
-    rows: int
-    walks: Tuple[Walk, ...]
-    waits: Tuple[int, ...] = ()
-
-
-def scan_plan(jobs: Sequence[ScanJob]) -> List[Unit]:
-    """The units of a launch of `jobs` (pure; the kernel runs them): each
-    diagonal job a walk, each horizontal job joined to the walk of the
-    diagonal job on its rows and sense (a top-down one first) or a walk of
-    its own, two walks on the same rows in opposite horizontal senses
-    paired; a unit waits for every earlier unit whose rows meet its own.
-    Vertical jobs (dx = 0) are refused."""
-    if any(job.dx == 0 for job in jobs):
-        raise ValueError("scan_plan: a vertical job (dx = 0); those are sgm_tile_final's")
-    walks = []  # [row0, rows, dx, vs, h, d]
-    for j, job in enumerate(jobs):
-        if job.dx != 0 and job.dy != 0:
-            walks.append([job.row0, job.rows, job.dx, job.dy, -1, j])
-    for j, job in enumerate(jobs):
-        if job.dy != 0:
-            continue
-        free = [w for w in walks if w[:3] == [job.row0, job.rows, job.dx] and w[4] < 0]
-        if free:
-            max(free, key=lambda w: w[3])[4] = j
-        else:
-            walks.append([job.row0, job.rows, job.dx, 1, j, -1])
-    walks.sort(key=lambda w: min(i for i in w[4:] if i >= 0))
-    units, used = [], [False] * len(walks)
-    for a, wa in enumerate(walks):
-        if used[a]:
-            continue
-        mate = next((b for b in range(a + 1, len(walks)) if not used[b]
-                     and walks[b][:2] == wa[:2] and walks[b][2] == -wa[2]), None)
-        members = [wa] if mate is None else [wa, walks[mate]]
-        for b in (a, mate):
-            if b is not None:
-                used[b] = True
-        units.append(Unit(wa[0], wa[1], tuple(Walk(*w[2:]) for w in members)))
-    return [dataclasses.replace(u, waits=tuple(
-        v for v in range(i) if units[v].row0 < u.row0 + u.rows
-        and u.row0 < units[v].row0 + units[v].rows)) for i, u in enumerate(units)]
-
-
-#: rows of a group of a walk (TS_G in `csrc/sgm_tile.cu`): a block of as
-#: many warps walks them, a warp a row
-GROUP_ROWS = 4
-
-
-def unit_blocks(unit: Unit) -> int:
-    """The kernel's blocks for `unit`: a block a group of GROUP_ROWS rows of
-    each walk."""
-    return len(unit.walks) * -(-unit.rows // GROUP_ROWS)
-
-
-def scratch_layout(units: Sequence[Unit], W: int, D: int):
-    """(flag words, each walk's first carry-slot word (0 for one without a
-    diagonal job), total words) of a launch's scratch: a done word and a
-    meeting word a block, then a row of D words a column for each group of
-    each diagonal walk; every region starts on 16 bytes (the kernel copies
-    the slots with cp.async)."""
-    flags = 2 * sum(unit_blocks(u) for u in units)
-    words, bufs = flags, []
-    for u in units:
-        row = []
-        for w in u.walks:
-            row.append(words if w.d >= 0 else 0)
-            if w.d >= 0:
-                n = -(-u.rows // GROUP_ROWS) * W * D
-                words += n + n % 2
-        bufs.append(row)
-    return flags, bufs, words
-
-
-#: each (device, stream)'s scratch words and the last tag handed out: a
-#: launch tags its words with a tag no earlier launch on the buffer used,
-#: so no launch needs the buffer cleared (but the one after the last tag)
-_scratch: dict = {}
-#: the last tag (tags are 32 bits; 0 is a cleared word's)
-LAST_TAG = 0xFFFFFFFF
-
-
-def _scratch_for(device: torch.device, words: int):
-    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
-    buf, tag = _scratch.get(key, (None, 0))
-    if buf is None or buf.numel() < words:
-        buf = torch.zeros(max(words, 1), dtype=torch.int64, device=device)
-        tag = 0
-    elif tag == LAST_TAG:  # the tags wrap: clear the words, in stream order
-        buf.zero_()
-        tag = 0
-    _scratch[key] = (buf, tag + 1)
-    return buf, tag + 1
-
-
 def _fn(name: str, argtypes):
     lib = _build.load("sgm_tile")
     fn = getattr(lib, name)
@@ -304,47 +177,31 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 #: the ctypes argument types of the two C entry points
-SCAN_ARGTYPES = [_build.P, _build.I, _build.P, _build.I, _build.I, _build.I, _build.I,
-              _build.I, _build.P, _build.P, _build.I, _build.P, _build.P, _build.I,
-              _build.P, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_uint, _build.P]
+SCAN_ARGTYPES = [_build.P, _build.I, _build.P] + [_build.I] * 5 + [
+    _build.P, _build.P, _build.I, _build.P]
 FINAL_ARGTYPES = [_build.P, _build.I, _build.P] + [_build.I] * 7 + [_build.P] * 5
 
 
 def launch_scan(fn, C: torch.Tensor, S: torch.Tensor, jobs: Sequence[ScanJob],
                 p1: int, p2: int):
     """One launch of `rtdm_sgm_tile_scan` (or a copy of it, `fn`) on checked
-    CUDA tensors: the plan, the scratch and its tag, the jobs' outputs;
-    returns (results, the entry's error code)."""
+    CUDA tensors: the job descriptors and the jobs' outputs; returns
+    (results, the entry's error code)."""
     H, W, D = C.shape
     results = []
-    jdesc = (ctypes.c_int * (4 * len(jobs)))()
-    jptrs = (ctypes.c_void_p * (5 * len(jobs)))()
+    desc = (ctypes.c_int * (4 * len(jobs)))()
+    ptrs = (ctypes.c_void_p * (5 * len(jobs)))()
     for i, job in enumerate(jobs):
-        out = prev = None
-        if job.dx != 0:
-            out = torch.empty((job.rows + 1, D), dtype=torch.int32, device=C.device)
-            if job.dy != 0:
-                prev = torch.empty((W, D), dtype=torch.int32, device=C.device)
+        out = torch.empty((job.rows + 1, D), dtype=torch.int32, device=C.device)
+        prev = (torch.empty((W, D), dtype=torch.int32, device=C.device)
+                if job.dy != 0 else None)
         results.append((out, prev))
-        jdesc[4 * i: 4 * i + 4] = [job.dy, job.dx, job.row0, job.rows]
-        jptrs[5 * i: 5 * i + 5] = [_ptr(job.inbox), _ptr(job.outbox), _ptr(out),
-                                   _ptr(job.prev), _ptr(prev)]
-    units = scan_plan(jobs)
-    flags, bufs, words = scratch_layout(units, W, D)
-    udesc = (ctypes.c_int * (12 * len(units)))()
-    ubuf = (ctypes.c_longlong * (2 * len(units)))()
-    for u, unit in enumerate(units):
-        walks = list(unit.walks) + [Walk(0, 0, -1, -1)] * (2 - len(unit.walks))
-        udesc[12 * u: 12 * u + 12] = [
-            unit.row0, unit.rows, len(unit.walks), sum(1 << v for v in unit.waits),
-            *[f for w in walks for f in (w.dx, w.vs, w.h, w.d)]]
-        ubuf[2 * u: 2 * u + 2] = bufs[u] + [0] * (2 - len(bufs[u]))
-    scratch, tag = _scratch_for(C.device, words)
+        desc[4 * i: 4 * i + 4] = [job.dy, job.dx, job.row0, job.rows]
+        ptrs[5 * i: 5 * i + 5] = [_ptr(job.inbox), _ptr(job.outbox), _ptr(out),
+                                  _ptr(job.prev), _ptr(prev)]
     with torch.cuda.device(C.device):
-        err = fn(C.data_ptr(), C.element_size(), S.data_ptr(), H, W, D,
-                 int(p1), int(p2), jdesc, jptrs, len(jobs), udesc, ubuf,
-                 len(units), scratch.data_ptr(), scratch.numel(), flags, tag,
-                 _build.stream_of(C))
+        err = fn(C.data_ptr(), C.element_size(), S.data_ptr(), H, W, D, int(p1),
+                 int(p2), desc, ptrs, len(jobs), _build.stream_of(C))
     return results, err
 
 
@@ -356,9 +213,6 @@ def sgm_tile_scan(C: torch.Tensor, S: torch.Tensor, jobs: Sequence[ScanJob],
     if not _build.on_card(C, "sgm_tile_scan"):
         return sgm_tile_scan_plain(C, S, jobs, p1, p2)
     _check(C, S, jobs)
-    if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("sgm_tile_scan: cannot be captured in a CUDA graph (each "
-                           "launch needs a tag no earlier launch used)")
     lib, fn = _fn("rtdm_sgm_tile_scan", SCAN_ARGTYPES)
     results, err = launch_scan(fn, C, S, jobs, p1, p2)
     sgm_tile_scan.launches += 1

@@ -31,12 +31,12 @@ so K + n - 1 steps in all. Each step first exchanges last step's outboxes,
 one `batch_isend_irecv` per direction family, posted by every rank in
 every step, then scans the active directions' row blocks: one launch of
 `sgm_tile_scan` (`ops/cuda/sgm_tile.py`) a step with any active direction
-(the directions on one block in one sense share a walk, each element of S
-has one writer). The message layout (an (Rb + 1, D) strip a direction in
-global row order), the carries, the direction lists and the default row
-block are the reference's; a rank skips the scans of its inactive
-directions, whose outboxes stay as they were (the reference computes them
-and masks with `active`).
+(a warp a line of each direction, its L added into S atomically: the
+integer sum does not depend on the order). The message layout (an
+(Rb + 1, D) strip a direction in global row order), the carries, the
+direction lists and the default row block are the reference's; a rank
+skips the scans of its inactive directions, whose outboxes stay as they
+were (the reference computes them and masks with `active`).
 
 Then the tile's last launch, `sgm_tile_final`: the tile-local vertical
 paths and the winner-take-all, uniqueness and subpixel step on the tile

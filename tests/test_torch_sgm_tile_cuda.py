@@ -1,14 +1,13 @@
 """The exact width tiling's kernels on the card against their plain
 versions, bit for bit: `sgm_tile_scan` (csrc/sgm_tile.cu) on a launch of
 every direction with random carries, on each direction alone, on wavefront
-steps whose walks meet in the middle column, on launches with jobs on the
-same rows in opposite senses (as at n = 1), on an odd tile whose D-vectors
-are not whole 16-byte pieces (the register path), and its refusals of
-vertical jobs and of graph capture; `sgm_tile_final` (the vertical paths
-and the winner-take-all) in both of its modes; and K3's
-output column window (csrc/sgm_cost.cu) against the full volume's slice.
-Marked `cuda`: they skip without a card. No JAX here, so they run on the
-card's machine:
+steps, on launches with jobs on the same rows in opposite senses (as at
+n = 1), on an odd tile whose D-vectors are not whole 16-byte pieces (the
+register path), its refusal of vertical jobs, and a step captured in a
+CUDA graph and replayed; `sgm_tile_final` (the vertical paths and the
+winner-take-all) in both of its modes; and K3's output column window
+(csrc/sgm_cost.cu) against the full volume's slice. Marked `cuda`: they
+skip without a card. No JAX here, so they run on the card's machine:
 `python3 -m pytest --noconftest -q tests/test_torch_sgm_tile_cuda.py`."""
 
 import numpy as np
@@ -56,6 +55,18 @@ def _job(strip, dy, dx, row0, rows, W, D):
                    strip((W, D)))
 
 
+def _wavefront(strip, H, W, D, rb, kf=2, kb=1):
+    """A wavefront step of 8 paths: every cross-tile direction on its block
+    of rb rows (k = kf from the left, kb from the right), random carries;
+    at kf = kb + 1 a block holds jobs of both horizontal senses."""
+    jobs = []
+    for dy, dx in [(0, 1), (1, 1), (-1, 1), (0, -1), (1, -1), (-1, -1)]:
+        k = kf if dx == 1 else kb
+        start = H - (k + 1) * rb if dy == -1 else k * rb
+        jobs.append(_job(strip, dy, dx, start, rb, W, D))
+    return jobs
+
+
 def _same_on_card(C, jobs, dev, S0=None):
     """One launch of `jobs` on the card against the plain jobs: S, every
     outbox and prev."""
@@ -79,9 +90,9 @@ def _same_on_card(C, jobs, dev, S0=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,dtype", [(100, torch.int16), (128, torch.int16), (256, torch.int32), (20, torch.int16)])
 def test_scan_kernel_matches_plain_on_cuda(D, dtype):
-    """Every cross-tile direction in one launch on overlapping rows: two
-    pairs of walks on one block, a diagonal walk and a horizontal one over
-    rows that meet theirs (the units wait for each other)."""
+    """Every cross-tile direction in one launch on overlapping rows: all
+    six on one block, a diagonal and a horizontal job over rows that meet
+    theirs (their atomic adds land on the same pixels)."""
     dev = cuda_or_skip()
     H, W = 40, 37
     C = _volume(5, H, W, D, dtype)
@@ -94,8 +105,9 @@ def test_scan_kernel_matches_plain_on_cuda(D, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("D,dtype", SHAPES)
 def test_scan_each_direction_on_cuda(D, dtype):
-    """Each direction alone over 22 rows (groups of 4 rows, the last one
-    short, so the carries cross groups in both senses)."""
+    """Each direction alone over 22 rows of a 37-column tile (diagonals
+    that enter from the inbox, from prev, and leave through the edge
+    column)."""
     dev = cuda_or_skip()
     H, W = 40, 37
     C = _volume(D, H, W, D, dtype)
@@ -105,20 +117,40 @@ def test_scan_each_direction_on_cuda(D, dtype):
 
 
 @pytest.mark.cuda
-def test_scan_refuses_vertical_jobs_and_graph_capture_on_cuda():
+def test_scan_refuses_vertical_jobs_and_replays_in_a_graph_on_cuda():
     """The vertical paths are `sgm_tile_final`'s: the scan kernel refuses
-    them; and a captured launch would replay its tag, so capture raises."""
+    them. A wavefront step captured in a CUDA graph and replayed twice, on
+    S reset between the replays, equals the eager call bit for bit (S, the
+    outboxes, the prevs): a launch keeps nothing between calls."""
     dev = cuda_or_skip()
     C = _volume(3, 8, 9, 32, torch.int16).to(dev)
     S = torch.zeros(C.shape, dtype=torch.int32, device=dev)
     for dy in (1, -1):
         with pytest.raises(ValueError, match="vertical"):
             sgm_tile_scan(C, S, [ScanJob(0, 1, 0, 8), ScanJob(dy, 0, 0, 8)], P1, P2)
-    sgm_tile_scan(C, S, [ScanJob(0, 1, 0, 8)], P1, P2)  # built before capture
+    H, W, D = 48, 37, 128
+    C = _volume(11, H, W, D, torch.int16).to(dev)
+    on = lambda t: None if t is None else t.to(dev)  # noqa: E731
+    jobs = [ScanJob(j.dy, j.dx, j.row0, j.rows, on(j.inbox), on(j.outbox), on(j.prev))
+            for j in _wavefront(_strips(12), H, W, D, 12)]
+    S0 = torch.from_numpy(np.random.default_rng(2).integers(-5000, 5000, (H, W, D))
+                          .astype(np.int32)).to(dev)
+    S_eager = S0.clone()
+    eager = sgm_tile_scan(C, S_eager, jobs, P1, P2)
+    S_graph = S0.clone()
     graph = torch.cuda.CUDAGraph()
-    with pytest.raises(RuntimeError, match="CUDA graph"):
-        with torch.cuda.graph(graph):
-            sgm_tile_scan(C, S, [ScanJob(0, 1, 0, 8)], P1, P2)
+    with torch.cuda.graph(graph):
+        captured = sgm_tile_scan(C, S_graph, jobs, P1, P2)
+    for _ in range(2):
+        S_graph.copy_(S0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(S_graph, S_eager)
+        for (go, gp), (eo, ep) in zip(captured, eager):
+            assert torch.equal(go, eo)
+            assert (gp is None) == (ep is None)
+            if ep is not None:
+                assert torch.equal(gp, ep)
 
 
 @pytest.mark.cuda
@@ -126,30 +158,26 @@ def test_scan_refuses_vertical_jobs_and_graph_capture_on_cuda():
 @pytest.mark.parametrize("D,dtype", SHAPES)
 def test_scan_wavefront_step_on_cuda(W, D, dtype):
     """A steady wavefront step of 8 paths (k = 2 from the left, 1 from the
-    right on 4 blocks of 12 rows): the top-down walk of one family and the
-    bottom-up walk of the other on one block meet in the middle column, at
-    even and odd W; S starts nonzero."""
+    right on 4 blocks of 12 rows): the top-down jobs of one family and the
+    bottom-up job of the other add into the same block, at even and odd W;
+    S starts nonzero."""
     dev = cuda_or_skip()
     H, rb = 48, 12
     C = _volume(W + D, H, W, D, dtype)
-    strip = _strips(W)
-    jobs = []
-    for dy, dx in [(0, 1), (1, 1), (-1, 1), (0, -1), (1, -1), (-1, -1)]:
-        k = 2 if dx == 1 else 1
-        start = H - (k + 1) * rb if dy == -1 else k * rb
-        jobs.append(_job(strip, dy, dx, start, rb, W, D))
     S0 = torch.from_numpy(np.random.default_rng(1).integers(-5000, 5000, (H, W, D))
                           .astype(np.int32))
-    _same_on_card(C, jobs, dev, S0)
+    _same_on_card(C, _wavefront(_strips(W), H, W, D, rb), dev, S0)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocks", [(0, 0, 0, 0, 30, 30), (15, 15, 15, 15, 15, 15)])
-@pytest.mark.parametrize("D,dtype", [(128, torch.int16), (256, torch.int32)])
+@pytest.mark.parametrize("D,dtype", [(128, torch.int16), (256, torch.int32),
+                                     (48, torch.int32), (100, torch.int32),
+                                     (7, torch.int16)])
 def test_scan_opposite_senses_on_cuda(blocks, D, dtype):
     """Jobs on the same rows in opposite senses, as at n = 1 (the top-down
     families on one block, the bottom-up on another), and all six on one
-    block (two pairs, the second waiting for the first)."""
+    block."""
     dev = cuda_or_skip()
     H, W, R = 60, 41, 30
     C = _volume(7, H, W, D, dtype)
@@ -168,12 +196,7 @@ def test_odd_tile_register_path_on_cuda(D, dtype):
     H, W, rb = 28, 97, 7
     C = _volume(D, H, W, D, dtype)
     strip = _strips(D)
-    jobs = []
-    for dy, dx in [(0, 1), (1, 1), (-1, 1), (0, -1), (1, -1), (-1, -1)]:
-        k = 2 if dx == 1 else 1
-        start = H - (k + 1) * rb if dy == -1 else k * rb
-        jobs.append(_job(strip, dy, dx, start, rb, W, D))
-    _same_on_card(C, jobs, dev)
+    _same_on_card(C, _wavefront(strip, H, W, D, rb), dev)
     for dy, dx in DIRS:
         _same_on_card(C, [_job(strip, dy, dx, 0, H, W, D)], dev)
     for dirs in (((1, 0),), ((1, 0), (-1, 0))):
