@@ -136,6 +136,26 @@ columns, 7-row blocks, D = 100: the kernels' register path).
      1280x720 on 4 tiles. The ms a frame of each is printed; on gloo the
      ranks time-slice one card, so those are not scaling figures.
 
+Phase 3 also holds the batch programs' batched entries against their
+plain versions at 1280x720 with B = 4 rigs, timed: K1 (`rectify_pair_batch`,
+both views of the four frames in one launch), K3 (`sgm_cost_volume_batch`)
+and K5 (`sgm_vert_wta_batch`, int16 and int32 volumes), each one launch (K5
+one pair) by the libraries' own counts; K5 also on a batch its band plan
+must split (3840x2160's W1 = 3712 at D = 128 on 16 rows) and on a frame of
+all-equal costs beside a textured one; and K9b's call beside an elementwise
+add of the same bytes (the memory's rate for that stream, single calls and
+20 back to back).
+
+ 13. the batch program (`step_batch`, `process_batch`: `batch_program`)
+     at 1280x720 with B = 4 rigs, SGM-8 D=128 and BM-128: each step's
+     launches (the SGM program: the batched K1, K3 and K5 once, K5's two
+     CUDA launches, by the wrappers' and the libraries' counts; the
+     single-frame entries never) with every plain version guarded, every
+     frame equal to the plain single-frame program of its rig's pair; then
+     `step_batch` frames/s beside the pipelined mode's (`dispatch_batch`,
+     phase 11's steps) and the single-stream `run`, with a step's device
+     time, device operations and busy share.
+
 The last lines are the kernels' JSON summary (each kernel's first timed
 case, and under `cases` every timed case with its own bound and library
 time), the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -211,6 +231,30 @@ POST_PER_FRAME = {
     "sgm": {"sgm_cost_volume": 2, "vol_transpose": 4, "sgm_horiz": 2,
             "sgm_vert_wta": 2, "tridiag_smooth": 6},
     "bm": {"bm_cost_wta": 2, "tridiag_smooth": 6},
+}
+#: the batched entries of the batch programs (phase 3, phase 13)
+BATCH_ENTRIES = ("rectify_pair_batch", "sgm_cost_volume_batch", "sgm_vert_wta_batch")
+#: the kernels of the SGM batch program (phase 13): the batched K1, K3
+#: and K5, K12, K4 and K6 on the B * H rows, K2 and K7 frame by frame
+BATCH_SGM_PATH = ("rectify_pair_batch", "seg_min_propagate", "sgm_cost_volume_batch",
+                  "vol_transpose", "sgm_horiz", "sgm_vert_wta_batch",
+                  "lr_resolve_sgbm", "speckle_decision", "speckle_apply")
+#: wrapper launches a step of the batch program (B = BATCH rigs)
+BATCH_PER_STEP = {
+    "sgm": {"rectify_pair_batch": 1, "rectify_pair": 0,
+            "sgm_cost_volume_batch": 1, "sgm_cost_volume": 0,
+            "vol_transpose": 2, "sgm_horiz": 1, "sgm_vert_wta_batch": 1,
+            "sgm_vert_wta": 0, "lr_resolve_sgbm": 1,
+            "speckle_decision": BATCH, "speckle_apply": BATCH},
+    "bm": {"rectify_pair_batch": 1, "rectify_pair": 0,
+           "bm_cost_wta": BATCH, "lr_resolve_bm": BATCH},
+}
+#: (library, count, CUDA launches a step) of the batched K1, K3 and K5
+BATCH_LIB_PER_STEP = {
+    "sgm": (("remap", "rtdm_remap_kernel_launches", 1),
+            ("sgm_cost", "rtdm_sgm_cost_kernel_launches", 1),
+            ("sgm_vert_wta", "rtdm_sgm_vert_kernel_launches", 2)),
+    "bm": (("remap", "rtdm_remap_kernel_launches", 1),),
 }
 #: the smoother kernel against its plain version: within this share of the
 #: input's range (the same float32 operations in the same order; they part
@@ -859,8 +903,9 @@ def _coop_streams(card):
 
 def _entry_points(card):
     """Phase 11: the CLI (BM default, SGM-8, run_preloaded) from calibration
-    files, the pipelined batch mode on four streams (SGM-8 and BM), the
-    setters, and the host syncs of a frame. Returns {path: launches}."""
+    files, the pipelined batch mode on four streams (`dispatch_batch`,
+    SGM-8 and BM), the setters, and the host syncs of a frame. Returns
+    {path: launches}."""
     import tempfile
 
     import torch
@@ -908,7 +953,7 @@ def _entry_points(card):
               f"frames/s, run_preloaded {rates['run_preloaded']:.2f} frames/s "
               f"({PRELOAD_FRAMES} frames, no consumer)", flush=True)
 
-    # -- the pipelined batch mode: four rigs, four streams -----------------
+    # -- the pipelined batch mode: four rigs, four streams (dispatch_batch) --
     for kind, path in (("sgm", SGM_PATH), ("bm", BM_PATH)):
         what = f"phase 11 batch {kind} x{BATCH} {W}x{H}"
         cfg = _config(kind, W, H).replace(batch=BATCH)
@@ -921,9 +966,9 @@ def _entry_points(card):
         with _deadline(BATCH_DEADLINE, f"{what} checked steps"):
             with _no_plain_on_card(), _streams_seen() as seen:
                 reset_launch_counts()
-                results = [eng.step_batch() for _ in range(BATCH_STEPS)]
+                results = [_pipelined_step(eng) for _ in range(BATCH_STEPS)]
                 launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
-        _require_launched(launches, path, what)
+        _require_launched(launches, path, what, BATCH_ENTRIES)
         coop = ("cc_sweep",) + (("sgm_vert_wta",) if kind == "sgm" else ())
         for mod in coop:
             if not batch_streams <= seen.get(mod, set()):
@@ -958,11 +1003,11 @@ def _entry_points(card):
                        device=DEV)
         with _deadline(BATCH_DEADLINE, f"{what} timing"):
             for _ in range(8):  # render each rig's ring
-                timed.step_batch()
+                _pipelined_step(timed)
             _sync()
             t0 = time.perf_counter()
             for _ in range(BATCH_TIMED_STEPS):
-                timed.step_batch()
+                _pipelined_step(timed)
             batch_fps = BATCH * BATCH_TIMED_STEPS / (time.perf_counter() - t0)
             single = _engine(kind, W, H, ring=8)
             single.warmup()
@@ -973,14 +1018,15 @@ def _entry_points(card):
                           / (single.stats.wall_seconds - s0))
             lefts = [_source(W, H, seed=s).render(0)[0] for s in range(BATCH)]
             rights = [_source(W, H, seed=s).render(0)[1] for s in range(BATCH)]
-            step = lambda: timed.process_batch(lefts, rights)  # noqa: E731
+            step = lambda: [_to_host(o) for o in  # noqa: E731
+                            timed.dispatch_batch(lefts, rights)]
             dev_ms, wall_ms, ops = _device_busy(step)
             n, streams, over_ms, pairs, n_coop = _trace_overlap(step)
             syncs = _host_syncs(lambda: timed.dispatch_batch(lefts, rights))
         print(f"{what}: host syncs of dispatch_batch: {syncs or 'none'}", flush=True)
         if any("rt_depth_map_tpu_torch" in site for site in syncs):
             raise AssertionError(f"{what}: dispatch_batch waits for the device")
-        print(f"{what} timing on {card}: step_batch {batch_fps:.2f} frames/s over "
+        print(f"{what} timing on {card}: pipelined steps {batch_fps:.2f} frames/s over "
               f"{BATCH_TIMED_STEPS} steps; single-stream run {single_fps:.2f} frames/s "
               f"over {BATCH * BATCH_TIMED_STEPS} frames; a step {wall_ms:.3f} ms of wall, "
               f"{dev_ms:.3f} ms of kernel time summed over its streams (ratio "
@@ -1027,6 +1073,277 @@ def _entry_points(card):
             raise AssertionError(f"phase 11: the {kind} frame program waits for the "
                                  f"device: {syncs}")
         del e
+    return runs
+
+
+# -- the batched entries (phase 3) and the batch programs (phase 13) --------
+
+def _lib_count(lib: str, name: str):
+    """A kernel library's own count of its CUDA launches (a ctypes int)."""
+    from rt_depth_map_tpu_torch.ops.cuda import _build
+
+    return ctypes.c_int.in_dll(_build.load(lib), name)
+
+
+def _pipelined_step(eng):
+    """One step of the pipelined batch mode: a pair from each rig of the
+    engine's MultiStreamSource, `dispatch_batch` (a frame program a rig, each
+    on its own stream), the B results on the host: `step_batch` with
+    `dispatch_batch` in place of the batch program."""
+    from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
+
+    pairs = eng.source.grab_batch()
+    outs = eng.dispatch_batch([eng._decode_eye(lf, 0) for lf, _ in pairs],
+                              [eng._decode_eye(rf, 1) for _, rf in pairs])
+    return [FrameResult(**_to_host(o)) for o in outs]
+
+
+def _rig_batch(w, h, step=0):
+    """The (B, h, w, 3) uint8 left and right images of BATCH rigs (seeds 0
+    to BATCH - 1) at `step`, on the card."""
+    import torch
+
+    pairs = [_source(w, h, seed=s).render(step)[:2] for s in range(BATCH)]
+    return tuple(torch.from_numpy(np.stack([p[i] for p in pairs])).to(DEV)
+                 for i in (0, 1))
+
+
+def _batch_kernels(check, st, m):
+    """Phase 3: the batched K1, K3 and K5 against their plain versions at
+    1280x720 with B = BATCH rigs, timed, with their launches by the
+    wrappers' and the libraries' counts; K5 also on an int32 volume, on a
+    batch its band plan splits into launches of fewer frames, and on a
+    frame of all-equal costs beside a textured one (a carry leaked across
+    the frames' border would show there). Each bound is B frames' bytes
+    (the rectify tables, shared by the frames, once)."""
+    import torch
+
+    from rt_depth_map_tpu_torch.ops import sgbm as sg
+    from rt_depth_map_tpu_torch.ops.color import rgb_to_gray
+    from rt_depth_map_tpu_torch.ops.cuda.remap import (
+        rectify_pair_batch,
+        rectify_pair_batch_plain,
+    )
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (
+        sgm_cost_volume_batch,
+        sgm_cost_volume_batch_plain,
+    )
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz
+    from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (
+        k5_batch_plan,
+        sgm_vert_wta,
+        sgm_vert_wta_batch,
+        sgm_vert_wta_batch_plain,
+    )
+
+    B = BATCH
+    lefts, rights = _rig_batch(W, H)
+    planes = (rgb_to_gray(lefts), lefts, rgb_to_gray(rights))
+    what = f"{W}x{H} B={B}"
+
+    def counted(fn, lib, name, want, label):
+        count = _lib_count(lib, name)
+        before = count.value
+        out = fn()
+        if count.value - before != want:
+            raise AssertionError(f"{label}: {count.value - before} CUDA launches "
+                                 f"in a call, not {want}")
+        return out
+
+    rect = counted(lambda: rectify_pair_batch(*planes, st.left, st.right),
+                   "remap", "rtdm_remap_kernel_launches", 1, "rectify_pair_batch")
+    out_b = _nbytes(*rect)
+    check(rectify_pair_batch, lambda: rectify_pair_batch(*planes, st.left, st.right),
+          lambda: rectify_pair_batch_plain(*planes, st.left, st.right),
+          f"{what} both views",
+          bound=(_nbytes(st.left.packed, st.right.packed, *planes), out_b,
+                 16 * out_b))
+    lrect, _, rrect = rect
+    dtype = sg.volume_dtype(BS, m.pre_filter_cap)
+    lpl = sg.plane_stack(lrect, m.pre_filter_cap)
+    rpl = sg.plane_stack(rrect, m.pre_filter_cap)
+    C = counted(lambda: sgm_cost_volume_batch(lpl, rpl, D, BS, dtype)[0],
+                "sgm_cost", "rtdm_sgm_cost_kernel_launches", 1,
+                "sgm_cost_volume_batch")
+    n = C.numel()
+    check(sgm_cost_volume_batch, lambda: sgm_cost_volume_batch(lpl, rpl, D, BS, dtype)[0],
+          lambda: sgm_cost_volume_batch_plain(lpl, rpl, D, BS, dtype)[0], what,
+          bound=(_nbytes(lpl, rpl), _nbytes(C), _lanes(21 * n, C.element_size())),
+          plain_reps=2)
+    del lpl, rpl
+    W1 = W - D
+    p1, p2, ur = m.p1, max(m.p2, m.p1 + 1), m.uniqueness_ratio
+    Sh = sg.swap_pixel_axes(sgm_horiz(sg.swap_pixel_axes(C.view(B * H, W1, D)),
+                                      p1, p2)).view(B, H, W1, D)
+    bp = k5_batch_plan(B, W1, D, C.element_size(), C.device)
+    outs = counted(lambda: sgm_vert_wta_batch(C, Sh, p1, p2, ur), "sgm_vert_wta",
+                   "rtdm_sgm_vert_kernel_launches", 2 * -(-B // bp.frames),
+                   "sgm_vert_wta_batch")
+    check(sgm_vert_wta_batch, lambda: sgm_vert_wta_batch(C, Sh, p1, p2, ur),
+          lambda: sgm_vert_wta_batch_plain(C, Sh, p1, p2, ur), what + " int16",
+          bound=(_nbytes(C, Sh), _nbytes(*outs),
+                 _lanes(6 * 8 * n, C.element_size()) + 8 * n), plain_reps=1)
+    print(f"phase 3 batched entries {what}: rectify_pair_batch 1 CUDA launch, "
+          f"sgm_cost_volume_batch 1, sgm_vert_wta_batch {bp.frames} frames a launch "
+          f"pair ({bp.plan}), 2 CUDA launches a pair (the libraries' counts)",
+          flush=True)
+    Ci = C.to(torch.int32)
+    check(sgm_vert_wta_batch, lambda: sgm_vert_wta_batch(Ci, Sh, p1, p2, ur),
+          lambda: sgm_vert_wta_batch_plain(Ci, Sh, p1, p2, ur), what + " int32",
+          timed=False)
+    del Ci
+    # a frame of all-equal costs (and no horizontal sum) beside a textured
+    # one, each against the single-frame K5
+    Ce = torch.stack([C[0], torch.full_like(C[0], 1000)])
+    She = torch.stack([Sh[0], torch.zeros_like(Sh[0])])
+    eq = sgm_vert_wta_batch(Ce, She, p1, p2, ur)
+    for b in range(2):
+        if not all(torch.equal(g[b], o) for g, o in
+                   zip(eq, sgm_vert_wta(Ce[b].contiguous(), She[b].contiguous(),
+                                        p1, p2, ur))):
+            raise AssertionError(f"sgm_vert_wta_batch: frame {b} of the equal-cost "
+                                 f"batch differs from the single-frame K5")
+    check(sgm_vert_wta_batch, lambda: sgm_vert_wta_batch(Ce, She, p1, p2, ur),
+          lambda: sgm_vert_wta_batch_plain(Ce, She, p1, p2, ur),
+          f"{W}x{H} a textured frame beside one of all-equal costs", timed=False)
+    del C, Sh, Ce, She, eq, outs
+    # a batch the plan must split: 3840x2160's W1 = 3712 at D = 128 on 16
+    # rows, the fewest frames that do not fit one launch
+    rng = np.random.default_rng(8)
+    vw1, vd = 3712, 128
+    Bs = next(b for b in range(2, 9) if k5_batch_plan(b, vw1, vd, 2, DEV).frames < b)
+    sp = k5_batch_plan(Bs, vw1, vd, 2, DEV)
+    Cs = rng.integers(0, 2300, (Bs, 16, vw1, vd))
+    Cs[0, :, -1] = 2300
+    Cs[1, :, 0] = 0
+    Cs = torch.from_numpy(Cs).to(torch.int16).to(DEV)
+    Shs = torch.from_numpy(rng.integers(0, 1 << 14, (Bs, 16, vw1, vd))).to(
+        torch.int32).to(DEV)
+    pairs = -(-Bs // sp.frames)
+    w0 = sgm_vert_wta_batch.launches
+    counted(lambda: sgm_vert_wta_batch(Cs, Shs, p1, p2, ur), "sgm_vert_wta",
+            "rtdm_sgm_vert_kernel_launches", 2 * pairs, "sgm_vert_wta_batch split")
+    if sgm_vert_wta_batch.launches - w0 != pairs:
+        raise AssertionError("sgm_vert_wta_batch split: wrapper launches")
+    check(sgm_vert_wta_batch, lambda: sgm_vert_wta_batch(Cs, Shs, p1, p2, ur),
+          lambda: sgm_vert_wta_batch_plain(Cs, Shs, p1, p2, ur),
+          f"16x{vw1} D={vd} B={Bs}: {pairs} launch pairs of {sp.frames} frames",
+          timed=False)
+    print(f"phase 3 sgm_vert_wta_batch split: B={Bs} at W1={vw1} D={vd} in {pairs} "
+          f"launch pairs of <= {sp.frames} frames ({sp.plan}), exact", flush=True)
+    del Cs, Shs
+    torch.cuda.empty_cache()
+
+
+def _batch_modes(card):
+    """Phase 13: the batch program at 1280x720 with B = BATCH rigs
+    (MultiStreamSource, as phase 11), SGM-8 D=128 and BM-128: each step's
+    launches against BATCH_PER_STEP and the libraries' counts of the
+    batched K1, K3 and K5 (BATCH_LIB_PER_STEP), with the counts set to 0
+    just before and every plain version guarded; every frame equal to the
+    plain single-frame program of its rig's pair (depth to rtol 1e-5); then
+    `step_batch` frames/s beside the pipelined mode's steps
+    (`_pipelined_step`) and `run`, and a step's device ms, device
+    operations and busy share for both batch modes. Returns {path:
+    launches}."""
+    import torch
+
+    from rt_depth_map_tpu_torch import Engine
+    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+    from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
+    from rt_depth_map_tpu_torch.sources import MultiStreamSource
+
+    runs = {}
+    for kind in ("sgm", "bm"):
+        cfg = _config(kind, W, H).replace(batch=BATCH)
+        rigs = lambda ring=0: MultiStreamSource(  # noqa: E731
+            [_source(W, H, ring=ring, seed=s) for s in range(BATCH)])
+        what = f"phase 13 batch program {kind} x{BATCH} {W}x{H}"
+        eng = Engine(cfg, rectification=_rectification(W, H), source=rigs(),
+                     device=DEV)
+        refs = []  # the plain single-frame program of each rig
+        for step in range(BATCH_STEPS):
+            lefts, rights = _rig_batch(W, H, step)
+            refs.append([FrameResult(**_to_host(eng.frame_program(
+                lefts[b], rights[b], plain=True))) for b in range(BATCH)])
+        libs = [(_lib_count(lib, cnt), want)
+                for lib, cnt, want in BATCH_LIB_PER_STEP[kind]]
+        with _deadline(BATCH_DEADLINE, f"{what} checked steps"):
+            with _no_plain_on_card():
+                reset_launch_counts()
+                lib0 = [c.value for c, _ in libs]
+                results = [eng.step_batch() for _ in range(BATCH_STEPS)]
+                _sync()
+                launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
+                lib_steps = [(c.value - v0) / BATCH_STEPS
+                             for (c, _), v0 in zip(libs, lib0)]
+        path = BATCH_SGM_PATH if kind == "sgm" else ("rectify_pair_batch",) + BM_PATH[1:]
+        _require_launched(launches, path, what)
+        got = {k: launches[k] / BATCH_STEPS for k in BATCH_PER_STEP[kind]}
+        if got != BATCH_PER_STEP[kind]:
+            raise AssertionError(f"{what}: launches a step {got}, expected "
+                                 f"{BATCH_PER_STEP[kind]}")
+        if lib_steps != [want for _, want in libs]:
+            raise AssertionError(f"{what}: the libraries' CUDA launches a step "
+                                 f"{lib_steps}, expected {[w for _, w in libs]}")
+        for step, res in enumerate(results):
+            for b, ref in enumerate(refs[step]):
+                for k in ("disparity", "boxes", "mask", "count", "rgb_rect"):
+                    if not np.array_equal(getattr(res[b], k), getattr(ref, k)):
+                        raise AssertionError(f"{what} step {step} rig {b}: {k} "
+                                             f"differs from the plain program")
+                for k in ("depth_cm", "mean_z"):
+                    if not np.allclose(getattr(res[b], k), getattr(ref, k),
+                                       rtol=1e-5, equal_nan=True):
+                        raise AssertionError(f"{what} step {step} rig {b}: {k} "
+                                             f"off the plain program's")
+                if not res[b].has_objects:
+                    raise AssertionError(f"{what} step {step} rig {b}: no box")
+        print(f"{what}: {BATCH_STEPS} steps, every frame equals the plain "
+              f"single-frame program of its rig's pair; launches a step {got}; "
+              f"the libraries' CUDA launches a step (K1, K3, K5) {lib_steps}",
+              flush=True)
+        runs[f"batch program {kind} x{BATCH} {W}x{H}"] = launches
+        del eng
+        # timing: step_batch and the pipelined steps beside the single-stream run
+        rates = {}
+        lefts, rights = _rig_batch(W, H)
+        with _deadline(BATCH_DEADLINE, f"phase 13 {kind} timing"):
+            timed = Engine(cfg, rectification=_rectification(W, H),
+                           source=rigs(8), device=DEV)
+            modes = (("batch program", timed.step_batch,
+                      lambda: timed.process_batch(lefts, rights)),
+                     ("pipelined", lambda: _pipelined_step(timed),
+                      lambda: [_to_host(o) for o in
+                               timed.dispatch_batch(lefts, rights)]))
+            for mode, step, resident in modes:
+                for _ in range(8):  # render each rig's ring
+                    step()
+                _sync()
+                t0 = time.perf_counter()
+                for _ in range(BATCH_TIMED_STEPS):
+                    step()
+                fps = BATCH * BATCH_TIMED_STEPS / (time.perf_counter() - t0)
+                dev_ms, wall_ms, ops = _device_busy(resident)
+                rates[mode] = fps
+                print(f"phase 13 {mode} {kind} x{BATCH} {W}x{H} timing on {card}: "
+                      f"{fps:.2f} frames/s over {BATCH_TIMED_STEPS} steps; a step on "
+                      f"the same images each time {wall_ms:.3f} ms of wall, "
+                      f"{dev_ms:.3f} ms of device time (busy "
+                      f"{dev_ms / wall_ms:.3f}), {ops:g} device operations",
+                      flush=True)
+            del timed
+            single = _engine(kind, W, H, ring=8)
+            single.warmup()
+            single.run(frames=8, print_stats_on_sigint=False)
+            f0, s0 = single.stats.wall_frames, single.stats.wall_seconds
+            single.run(frames=BATCH * BATCH_TIMED_STEPS, print_stats_on_sigint=False)
+            rates["run"] = ((single.stats.wall_frames - f0)
+                            / (single.stats.wall_seconds - s0))
+            del single
+        print(f"phase 13 {kind} x{BATCH} {W}x{H} frames/s on {card}: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()), flush=True)
+        torch.cuda.empty_cache()
     return runs
 
 
@@ -1849,7 +2166,22 @@ def main() -> int:
               lambda: sgm_horiz_pass_plain(Ct, p1, p2, True, hft, True),
               what + " x-major R->L + partial (K9b form)",
               bound=(_nbytes(Ct, hft), _nbytes(hft), _lanes(8 * n, es)), plain_reps=1)
-        del Ct, hft
+        # the same bytes moved by an elementwise add (C and the partial read
+        # once, one output written): the rate the card's memory gives such a
+        # stream; a single call can end with up to the L2's 50 MB of its
+        # output not yet written back, which 20 calls back to back include
+        acc = torch.empty_like(hft)
+        k9b = lambda: sgm_horiz_pass(Ct, p1, p2, True, hft, True)  # noqa: E731
+        add = lambda: torch.add(Ct, hft, out=acc)  # noqa: E731
+        k9b_ms, k9b_b2b, add_ms, add_b2b = (_time_ms(k9b), _b2b_ms(k9b),
+                                            _time_ms(add), _b2b_ms(add))
+        moved = _nbytes(Ct, hft, acc)
+        print(f"phase 3 sgm_horiz_pass {what} x-major R->L + partial: "
+              f"{moved / 1e9:.4f} GB moved (bound {moved / PEAK_BYTES * 1e3:.4f} ms); "
+              f"the kernel {k9b_ms:.4f} ms, {k9b_b2b:.4f} ms back to back; "
+              f"torch.add of the same bytes {add_ms:.4f} ms, {add_b2b:.4f} ms back "
+              f"to back ({moved / add_b2b / 1e9:.3f} TB/s)", flush=True)
+        del Ct, hft, acc
         # K9c, the route's call (top-down + partial); K11's other sense and
         # its int32 contract
         Sa = sgm_vert_pass(C, p1, p2, partial=Sh)
@@ -2119,6 +2451,9 @@ def main() -> int:
               f"a call", flush=True)
         del Cv, h2, Shv
     del vols
+
+    # the batched entries of the batch programs at 720p, B = BATCH
+    _batch_kernels(check, st, m)
 
     # K9a/K9b off the frame programs' shapes: the register path (D = 100 at
     # int16: pixels that are not whole 16-byte pieces) on the odd crop's
@@ -2555,23 +2890,30 @@ def main() -> int:
     par_runs = _phase12(card)
     tile_launches = next(v for k, v in par_runs.items() if "(2, 2)" in k)
 
+    # -- 13. the batch program ---------------------------------------------
+    batch_runs = _batch_modes(card)
+    batch_launches = batch_runs[f"batch program sgm x{BATCH} {W}x{H}"]
+
     # each kernel's launches on the path that runs it: the flagship's for
     # its kernels, the stretch run's for the chained passes, the BM run's
     # for K8, the flagship's with the post filter for the smoother, the
-    # (2, 2) sharded step's (rank 0) for the exact tiling's scans (K10 runs
-    # on none); launches_by_path holds every run's counts
+    # (2, 2) sharded step's (rank 0) for the exact tiling's scans, the
+    # SGM batch program's for the batched entries (K10 runs on none);
+    # launches_by_path holds every run's counts
     runs = {f"sgm-8 {W}x{H} D={D} (bidir)": sgm_launches,
             f"bm {W}x{H} D={BM_D}": bm_launches,
             f"sgm-8 {str_w}x{str_h} D={str_d} (chained)": str_launches,
             f"sgm-5 {W}x{H} D={D} (chained)": sgbm5_launches,
             f"bm {str_w}x{str_h} D=288 (default)": bmd_launches,
             f"sgm-8 {W}x{H} D={D} + WLS": post_runs["sgm"],
-            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"], **entry_runs, **par_runs}
+            f"bm {W}x{H} D={BM_D} + WLS": post_runs["bm"], **entry_runs, **par_runs,
+            **batch_runs}
     kernels = []
     for wrapper, source, replaces in KERNELS:
         n = wrapper.__name__
         s = stats[n]
         launches = (post_runs["sgm"] if n in POST else
+                    batch_launches if n in BATCH_ENTRIES else
                     tile_launches if n in ("sgm_tile_scan", "sgm_tile_final") else
                     sgm_launches if n in SGM_PATH else
                     str_launches if n in CHAINED_PATH else bm_launches)[n]

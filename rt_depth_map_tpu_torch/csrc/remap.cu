@@ -30,7 +30,14 @@
 //   into the image whose weights are zeroed where the tap lies outside, so
 //   no load leaves the image and no branch depends on the border: output
 //   neighbours sample neighbouring source bytes, and L1 serves most taps;
-// - blockIdx.y picks the view, so one launch covers both views' planes.
+// - blockIdx.y picks the view, so one launch covers both views' planes;
+//   blockIdx.z picks the frame of a batch (rtdm_rectify_pair_batch: B
+//   frames of both views, the same tables, each frame sampling only its own
+//   source, so no frame's border taps reach another frame). The JAX
+//   package's batched form row-stacks the B sources behind a zero guard
+//   row and redirects fully outside windows to a sentinel
+//   (rt_depth_map_tpu/pipeline/engine.py:312-352); a frame index needs
+//   neither.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,6 +46,9 @@
 
 #define RM_THREADS 256
 #define RM_MAX_SIDE 32767  // ix and iy are int16 in the table
+
+// Launches of remap_u8_kernel made by this library, read through ctypes.
+extern "C" int rtdm_remap_kernel_launches = 0;
 
 // One plane of a view: a (H, W, C) source and its (n, C) output.
 struct RmPlane {
@@ -54,7 +64,9 @@ struct RmView {
   int n_planes;
 };
 
-// One launch: up to two views over sources of H x W, n output pixels each.
+// One launch: up to two views over sources of H x W, n output pixels each,
+// for each frame of a batch (frame f's planes f * H * W * C and f * n * C
+// bytes after frame 0's).
 struct RmArgs {
   RmView view[2];
   int H, W, n;
@@ -102,10 +114,15 @@ __device__ __forceinline__ uint32_t rm_sample(const uint8_t* src,
 }
 
 // The quad's m pixels (m = 4 but for the last quad) of one C-channel plane:
-// C 32-bit words (4 pixels x C bytes) stored whole, or m * C bytes.
-template <int C>
+// C 32-bit words (4 pixels x C bytes) stored whole, or m * C bytes. BATCH:
+// of the frame whose source and output start src_off and dst_off pixels
+// after frame 0's, stored whole only where its output keeps the words'
+// alignment (a later frame's does not where n * C is not a multiple of it).
+template <int C, bool BATCH>
 __device__ __forceinline__ void rm_plane(const RmPlane& pl, const RmTaps (&t)[4],
-                                         int p0, int m) {
+                                         int p0, int m, size_t src_off,
+                                         size_t dst_off) {
+  const uint8_t* src = BATCH ? pl.src + src_off * C : pl.src;
   uint32_t w[C];
 #pragma unroll
   for (int j = 0; j < C; ++j) w[j] = 0;
@@ -114,10 +131,11 @@ __device__ __forceinline__ void rm_plane(const RmPlane& pl, const RmTaps (&t)[4]
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int b = k * C + c;  // byte of the quad's 4 * C
-      w[b / 4] |= rm_sample<C>(pl.src, t[k], c) << (8 * (b % 4));
+      w[b / 4] |= rm_sample<C>(src, t[k], c) << (8 * (b % 4));
     }
-  uint8_t* dst = pl.dst + (size_t)p0 * C;
-  if (m == 4) {
+  uint8_t* dst = pl.dst + ((BATCH ? dst_off : 0) + p0) * C;
+  constexpr uintptr_t align = C == 3 ? 4 : 4 * C;
+  if (m == 4 && (!BATCH || ((uintptr_t)dst & (align - 1)) == 0)) {
     if constexpr (C == 3) {
 #pragma unroll
       for (int j = 0; j < 3; ++j) ((uint32_t*)dst)[j] = w[j];
@@ -134,6 +152,9 @@ __device__ __forceinline__ void rm_plane(const RmPlane& pl, const RmTaps (&t)[4]
   }
 }
 
+// BATCH: blockIdx.z is the frame (rtdm_rectify_pair_batch); without it the
+// kernel is the single-frame one, instruction for instruction.
+template <bool BATCH>
 __global__ void __launch_bounds__(RM_THREADS) remap_u8_kernel(const RmArgs a) {
   const int p0 = 4 * (blockIdx.x * RM_THREADS + threadIdx.x);
   if (p0 >= a.n) return;
@@ -141,6 +162,8 @@ __global__ void __launch_bounds__(RM_THREADS) remap_u8_kernel(const RmArgs a) {
   // local memory)
   const RmView v = blockIdx.y == 0 ? a.view[0] : a.view[1];
   const int m = min(4, a.n - p0);
+  const size_t f = BATCH ? blockIdx.z : 0;  // the frame
+  const size_t src_off = f * a.H * a.W, dst_off = f * a.n;
   uint2 word[4];
   if (m == 4) {
     const uint4 q0 = __ldg((const uint4*)(v.table + p0));
@@ -162,18 +185,19 @@ __global__ void __launch_bounds__(RM_THREADS) remap_u8_kernel(const RmArgs a) {
     if (i >= v.n_planes) break;
     const RmPlane& pl = v.plane[i];
     switch (pl.C) {  // uniform over the block
-      case 1: rm_plane<1>(pl, t, p0, m); break;
-      case 2: rm_plane<2>(pl, t, p0, m); break;
-      case 3: rm_plane<3>(pl, t, p0, m); break;
-      default: rm_plane<4>(pl, t, p0, m); break;
+      case 1: rm_plane<1, BATCH>(pl, t, p0, m, src_off, dst_off); break;
+      case 2: rm_plane<2, BATCH>(pl, t, p0, m, src_off, dst_off); break;
+      case 3: rm_plane<3, BATCH>(pl, t, p0, m, src_off, dst_off); break;
+      default: rm_plane<4, BATCH>(pl, t, p0, m, src_off, dst_off); break;
     }
   }
 }
 
 static bool rm_aligned(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-static int rm_launch(const RmArgs& a, int n_views, void* stream) {
-  if (a.H < 1 || a.W < 1 || a.H > RM_MAX_SIDE || a.W > RM_MAX_SIDE || a.n < 0)
+static int rm_launch(const RmArgs& a, int n_views, int frames, void* stream) {
+  if (a.H < 1 || a.W < 1 || a.H > RM_MAX_SIDE || a.W > RM_MAX_SIDE || a.n < 0 ||
+      frames < 1 || frames > 65535)
     return (int)cudaErrorInvalidValue;
   for (int v = 0; v < n_views; ++v) {
     if (!rm_aligned(a.view[v].table)) return (int)cudaErrorInvalidValue;
@@ -185,8 +209,14 @@ static int rm_launch(const RmArgs& a, int n_views, void* stream) {
   }
   if (a.n > 0) {
     const int quads = (a.n + 3) / 4;
-    const dim3 grid((quads + RM_THREADS - 1) / RM_THREADS, n_views);
-    remap_u8_kernel<<<grid, RM_THREADS, 0, (cudaStream_t)stream>>>(a);
+    const dim3 grid((quads + RM_THREADS - 1) / RM_THREADS, n_views, frames);
+    if (frames > 1)
+      remap_u8_kernel<true><<<grid, RM_THREADS, 0, (cudaStream_t)stream>>>(a);
+    else
+      remap_u8_kernel<false><<<grid, RM_THREADS, 0, (cudaStream_t)stream>>>(a);
+    const cudaError_t err = cudaGetLastError();
+    if (err == cudaSuccess) ++rtdm_remap_kernel_launches;
+    return (int)err;
   }
   return (int)cudaGetLastError();
 }
@@ -202,18 +232,19 @@ extern "C" int rtdm_remap_u8(const void* table, int n, const void* img, int H,
   a.view[0].table = (const uint2*)table;
   a.view[0].n_planes = 1;
   a.view[0].plane[0] = RmPlane{(const uint8_t*)img, (uint8_t*)out, C};
-  return rm_launch(a, 1, stream);
+  return rm_launch(a, 1, 1, stream);
 }
 
-// Both views of a stereo pair in one launch: the left gray (H, W) and RGB
-// (H, W, 3) through the left table into lrect (n) and rgbr (n, 3), the right
-// gray through the right table into rrect (n). Tables and outputs 16-byte
-// aligned; H, W <= 32767.
-extern "C" int rtdm_rectify_pair(const void* ltable, const void* rtable, int n,
-                                 int H, int W, const void* lgray,
-                                 const void* lrgb, const void* rgray,
-                                 void* lrect, void* rgbr, void* rrect,
-                                 void* stream) {
+// Both views of B stereo pairs in one launch: each frame's left gray
+// (H, W) and RGB (H, W, 3) through the left table into its lrect (n) and
+// rgbr (n, 3), its right gray through the right table into its rrect (n);
+// sources and outputs (B, ...) contiguous. Tables and frame 0's outputs
+// 16-byte aligned; H, W <= 32767.
+extern "C" int rtdm_rectify_pair_batch(const void* ltable, const void* rtable,
+                                       int n, int B, int H, int W,
+                                       const void* lgray, const void* lrgb,
+                                       const void* rgray, void* lrect,
+                                       void* rgbr, void* rrect, void* stream) {
   RmArgs a = {};
   a.H = H;
   a.W = W;
@@ -225,7 +256,17 @@ extern "C" int rtdm_rectify_pair(const void* ltable, const void* rtable, int n,
   a.view[1].table = (const uint2*)rtable;
   a.view[1].n_planes = 1;
   a.view[1].plane[0] = RmPlane{(const uint8_t*)rgray, (uint8_t*)rrect, 1};
-  return rm_launch(a, 2, stream);
+  return rm_launch(a, 2, B, stream);
+}
+
+// One stereo pair: rtdm_rectify_pair_batch at B = 1.
+extern "C" int rtdm_rectify_pair(const void* ltable, const void* rtable, int n,
+                                 int H, int W, const void* lgray,
+                                 const void* lrgb, const void* rgray,
+                                 void* lrect, void* rgbr, void* rrect,
+                                 void* stream) {
+  return rtdm_rectify_pair_batch(ltable, rtable, n, 1, H, W, lgray, lrgb,
+                                 rgray, lrect, rgbr, rrect, stream);
 }
 
 extern "C" const char* rtdm_error_string(int err) {

@@ -72,6 +72,9 @@
 #define SC_BIAS 0x01000100u  // 256 in each 16-bit half
 #define SC_PIX_BIAS 320      // 256 + (256 >> 2): what a pixel cost carries
 
+// Launches of sgm_cost_kernel made by this library, read through ctypes.
+extern "C" int rtdm_sgm_cost_kernel_launches = 0;
+
 __device__ __forceinline__ unsigned sc_min2(unsigned a, unsigned b) {
   unsigned r;
   asm("min.u16x2 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
@@ -127,7 +130,10 @@ struct ScShape {
       2 * NP * (sizeof(uint4) + sizeof(uint2)) + BS * SC_TX * SC_ND * 2;
 };
 
-template <typename CT, int BS>
+// BATCH: blockIdx.y runs over the stripes of every frame
+// (rtdm_sgm_cost_batch); without it the kernel is the single-frame one,
+// instruction for instruction.
+template <typename CT, int BS, bool BATCH>
 __global__ void __launch_bounds__(SC_ND)
 sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
                 int H, int W, int D, int minD, int minX1, int W1,
@@ -154,7 +160,17 @@ sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
   const int xr0 = lx0 - minD - (dhi - 1);    // image column of right column 0
   const int nr = nl + (dhi - dlo) - 1;
   const bool clamp = jw0 < 0 || j0 + SC_TX + W2 > W1;
-  const int y0 = blockIdx.y * SC_R;
+  int y0 = blockIdx.y * SC_R;
+  if constexpr (BATCH) {
+    // blockIdx.y: frame f's stripe; every row index below stays inside the
+    // frame, whose planes and volume the pointers move to
+    const int stripes = (H + SC_R - 1) / SC_R;
+    const int f = blockIdx.y / stripes;
+    y0 = (blockIdx.y - f * stripes) * SC_R;
+    lpl += (size_t)f * H * W;
+    rpl += (size_t)f * H * W;
+    out += (size_t)f * H * Wout * D;
+  }
   const int n_in = (min(y0 + SC_R, H) - y0) + 2 * W2;  // input rows
 
   // input row r's plane bytes into raw buffer b: left columns at [0, nl),
@@ -234,28 +250,38 @@ sgm_cost_kernel(const uint2* __restrict__ lpl, const uint2* __restrict__ rpl,
 }
 
 template <typename CT, int BS>
-static cudaError_t sc_launch_bs(const void* lpl, const void* rpl, int H, int W,
-                                int D, int minD, int minX1, int W1, int x_begin,
-                                int Wout, void* out, cudaStream_t stream) {
+static cudaError_t sc_launch_bs(const void* lpl, const void* rpl, int B, int H,
+                                int W, int D, int minD, int minX1, int W1,
+                                int x_begin, int Wout, void* out,
+                                cudaStream_t stream) {
   const size_t smem = ScShape<BS>::smem;
+  const void* kernel = B > 1 ? (const void*)sgm_cost_kernel<CT, BS, true>
+                             : (const void*)sgm_cost_kernel<CT, BS, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      sgm_cost_kernel<CT, BS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Wout + SC_TX - 1) / SC_TX, (H + SC_R - 1) / SC_R,
+  const dim3 grid((Wout + SC_TX - 1) / SC_TX, B * ((H + SC_R - 1) / SC_R),
                   (D + SC_ND - 1) / SC_ND);
-  sgm_cost_kernel<CT, BS><<<grid, D < SC_ND ? D : SC_ND, smem, stream>>>(
-      (const uint2*)lpl, (const uint2*)rpl, H, W, D, minD, minX1, W1, x_begin,
-      Wout, (CT*)out);
-  return cudaGetLastError();
+  const dim3 block(D < SC_ND ? D : SC_ND);
+  if (B > 1)
+    sgm_cost_kernel<CT, BS, true><<<grid, block, smem, stream>>>(
+        (const uint2*)lpl, (const uint2*)rpl, H, W, D, minD, minX1, W1,
+        x_begin, Wout, (CT*)out);
+  else
+    sgm_cost_kernel<CT, BS, false><<<grid, block, smem, stream>>>(
+        (const uint2*)lpl, (const uint2*)rpl, H, W, D, minD, minX1, W1,
+        x_begin, Wout, (CT*)out);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++rtdm_sgm_cost_kernel_launches;
+  return err;
 }
 
 template <typename CT>
-static cudaError_t sc_launch(const void* lpl, const void* rpl, int H, int W,
-                             int D, int bs, int minD, int minX1, int W1,
+static cudaError_t sc_launch(const void* lpl, const void* rpl, int B, int H,
+                             int W, int D, int bs, int minD, int minX1, int W1,
                              int x_begin, int Wout, void* out,
                              cudaStream_t stream) {
-#define SC_ARGS lpl, rpl, H, W, D, minD, minX1, W1, x_begin, Wout, out, stream
+#define SC_ARGS lpl, rpl, B, H, W, D, minD, minX1, W1, x_begin, Wout, out, stream
   switch (bs) {
     case 1: return sc_launch_bs<CT, 1>(SC_ARGS);
     case 3: return sc_launch_bs<CT, 3>(SC_ARGS);
@@ -268,26 +294,37 @@ static cudaError_t sc_launch(const void* lpl, const void* rpl, int H, int W,
   }
 }
 
-// lpl, rpl: (H, W, 8) uint8 plane stacks (bytes 6 and 7 zero); out:
-// (H, Wout, D) int16 (out_bytes 2) or int32 (out_bytes 4): the columns
-// [x_begin, x_begin + Wout) of the volume over the image columns
-// [minX1, minX1 + W1) at min_disparity minD. Requires 1 <= D <= 1024, odd
-// bs <= 11, minX1 = max(minD + D, 0), W1 = W + min(minD, 0) - minX1 >= 1 and
-// 0 <= x_begin < x_begin + Wout <= W1.
-extern "C" int rtdm_sgm_cost(const void* lpl, const void* rpl, int H, int W,
-                             int D, int bs, int minD, int minX1, int W1,
-                             int x_begin, int Wout, int out_bytes, void* out,
-                             void* stream) {
+// lpl, rpl: (B, H, W, 8) uint8 plane stacks (bytes 6 and 7 zero); out:
+// (B, H, Wout, D) int16 (out_bytes 2) or int32 (out_bytes 4): for each frame,
+// the columns [x_begin, x_begin + Wout) of the volume over the image columns
+// [minX1, minX1 + W1) at min_disparity minD. One launch for all B frames
+// (blockIdx.y runs over the frames' stripes). Requires B >= 1,
+// 1 <= D <= 1024, odd bs <= 11, minX1 = max(minD + D, 0),
+// W1 = W + min(minD, 0) - minX1 >= 1 and 0 <= x_begin < x_begin + Wout <= W1.
+extern "C" int rtdm_sgm_cost_batch(const void* lpl, const void* rpl, int B,
+                                   int H, int W, int D, int bs, int minD,
+                                   int minX1, int W1, int x_begin, int Wout,
+                                   int out_bytes, void* out, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (minX1 != (minD + D > 0 ? minD + D : 0) ||
+  if (B < 1 || B * ((H + SC_R - 1) / SC_R) > 65535 ||
+      minX1 != (minD + D > 0 ? minD + D : 0) ||
       W1 != W + (minD < 0 ? minD : 0) - minX1 || W1 < 1 || x_begin < 0 ||
       Wout < 1 || x_begin + Wout > W1)
     return (int)cudaErrorInvalidValue;
   if (out_bytes == 2)
-    return (int)sc_launch<int16_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1,
+    return (int)sc_launch<int16_t>(lpl, rpl, B, H, W, D, bs, minD, minX1, W1,
                                    x_begin, Wout, out, s);
-  return (int)sc_launch<int32_t>(lpl, rpl, H, W, D, bs, minD, minX1, W1,
+  return (int)sc_launch<int32_t>(lpl, rpl, B, H, W, D, bs, minD, minX1, W1,
                                  x_begin, Wout, out, s);
+}
+
+// One frame: rtdm_sgm_cost_batch at B = 1.
+extern "C" int rtdm_sgm_cost(const void* lpl, const void* rpl, int H, int W,
+                             int D, int bs, int minD, int minX1, int W1,
+                             int x_begin, int Wout, int out_bytes, void* out,
+                             void* stream) {
+  return rtdm_sgm_cost_batch(lpl, rpl, 1, H, W, D, bs, minD, minX1, W1,
+                             x_begin, Wout, out_bytes, out, stream);
 }
 
 extern "C" const char* rtdm_error_string(int err) {

@@ -71,6 +71,14 @@
 // Row step s of a launch is tagged tag0 + s. A single-launch call passes
 // tag0 = 1 with a freshly zeroed edge buffer; K5's second launch passes
 // tag0 = H + 1, so it cannot take a word the first one left.
+//
+// BATCH (K5's batched entry only): the launch covers F frames of the same
+// shape, (F, H, W1, D) volumes and (F, H, W1) outputs, one after another in
+// memory. blockIdx.y is the frame and owns gridDim.x whole bands of it and
+// their edge slots; a frame's first and last bands are image borders, so no
+// carry crosses from one frame to the next (the TPU kernel's `seg`). With
+// BATCH false the kernel is the single-frame one, instruction for
+// instruction.
 
 #pragma once
 
@@ -195,12 +203,25 @@ __host__ __device__ inline size_t vb_smem_bytes(int warps, int m, int D,
 // MULTI: m > 1; a one-column warp (MULTI false) compiles to one pixel and
 // one barrier a row step, with its vertical carry in registers.
 template <typename CT, typename SI, typename SO, int K, bool WTA, bool ASYNC,
-          bool MULTI>
+          bool MULTI, bool BATCH>
 __global__ void __launch_bounds__(VB_MAX_WARPS * 32, 1)
 sgm_vert3_kernel(const CT* __restrict__ C, const SI* __restrict__ S_in,
                  SO* __restrict__ S_out, int H, int W1, int D, int m_arg,
                  int up, unsigned tag0, int p1, int p2, vb_word* edge,
                  SgmWtaOut wta) {
+  if constexpr (BATCH) {  // frame blockIdx.y's volumes, outputs and slots
+    const size_t px = (size_t)blockIdx.y * H * W1;
+    C += px * D;
+    if (S_in != nullptr) S_in += px * D;
+    if (S_out != nullptr) S_out += px * D;
+    edge += (size_t)blockIdx.y * gridDim.x * 4 * D;
+    if constexpr (WTA) {
+      wta.best += px;
+      wta.minS += px;
+      wta.dval += px;
+      wta.uniq += px;
+    }
+  }
   constexpr int PF = VbPrefetch<K>::rows;
   constexpr int RING = VbPrefetch<K>::ring;
   extern __shared__ int32_t vb_smem[];
@@ -408,13 +429,16 @@ inline bool vb_async(int D) {
   return D * sizeof(CT) % 16 == 0 && D * sizeof(SI) % 16 == 0;
 }
 
-template <typename CT, typename SI, typename SO, int K, bool WTA>
+template <typename CT, typename SI, typename SO, int K, bool WTA,
+          bool BATCH = false>
 static const void* vb_kernel(bool async, bool multi) {
   if (multi)
-    return async ? (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, true, true>
-                 : (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, false, true>;
-  return async ? (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, true, false>
-               : (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, false, false>;
+    return async
+        ? (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, true, true, BATCH>
+        : (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, false, true, BATCH>;
+  return async
+      ? (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, true, false, BATCH>
+      : (const void*)sgm_vert3_kernel<CT, SI, SO, K, WTA, false, false, BATCH>;
 }
 
 template <typename CT, typename SI, typename SO, int K, bool WTA>
@@ -423,15 +447,20 @@ static size_t vb_smem_of(int warps, int m, int D) {
                        vb_async<CT, SI>(D), sizeof(CT), sizeof(SI));
 }
 
-// One launch of ceil(W1 / (warps * m)) bands of `warps` warps.
-template <typename CT, typename SI, typename SO, int K, bool WTA>
+// One launch of ceil(W1 / (warps * m)) bands of `warps` warps; BATCH: that
+// many bands for each of `frames` frames.
+template <typename CT, typename SI, typename SO, int K, bool WTA, bool BATCH>
 static cudaError_t vb_launch_k(const CT* C, const SI* S_in, SO* S_out, int H,
                                int W1, int D, int warps, int m, int up,
                                unsigned tag0, int p1, int p2, vb_word* edge,
-                               SgmWtaOut wta, cudaStream_t stream) {
-  if (warps < 1 || warps > VB_MAX_WARPS || m < 1) return cudaErrorInvalidValue;
+                               SgmWtaOut wta, cudaStream_t stream,
+                               int frames) {
+  if (warps < 1 || warps > VB_MAX_WARPS || m < 1 || frames < 1 ||
+      (!BATCH && frames != 1))
+    return cudaErrorInvalidValue;
   const int bands = (W1 + warps * m - 1) / (warps * m);
-  const void* kernel = vb_kernel<CT, SI, SO, K, WTA>(vb_async<CT, SI>(D), m > 1);
+  const void* kernel =
+      vb_kernel<CT, SI, SO, K, WTA, BATCH>(vb_async<CT, SI>(D), m > 1);
   const size_t smem = vb_smem_of<CT, SI, SO, K, WTA>(warps, m, D);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -440,18 +469,19 @@ static cudaError_t vb_launch_k(const CT* C, const SI* S_in, SO* S_out, int H,
                   (void*)&W1, (void*)&D,    (void*)&m,     (void*)&up,
                   (void*)&tag0, (void*)&p1, (void*)&p2,    (void*)&edge,
                   (void*)&wta};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(bands), dim3(warps * 32),
-                                    args, smem, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(bands, frames),
+                                    dim3(warps * 32), args, smem, stream);
   if (err == cudaSuccess) ++rtdm_sgm_vert_kernel_launches;
   return err;
 }
 
 // Blocks of this kernel resident at once on the current device for a band
 // of `warps` warps and m columns a warp (0 when it cannot launch at all).
-template <typename CT, typename SI, typename SO, int K, bool WTA>
+template <typename CT, typename SI, typename SO, int K, bool WTA, bool BATCH>
 static cudaError_t vb_resident_k(int D, int warps, int m, int* blocks) {
   *blocks = 0;
-  const void* kernel = vb_kernel<CT, SI, SO, K, WTA>(vb_async<CT, SI>(D), m > 1);
+  const void* kernel =
+      vb_kernel<CT, SI, SO, K, WTA, BATCH>(vb_async<CT, SI>(D), m > 1);
   const size_t smem = vb_smem_of<CT, SI, SO, K, WTA>(warps, m, D);
   int dev = 0, sms = 0, per_sm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -482,22 +512,24 @@ static cudaError_t vb_by_k(int D, F f) {
   return f(std::integral_constant<int, 8>{});
 }
 
-template <typename CT, typename SI, typename SO, bool WTA>
+// BATCH: `frames` frames in one launch (K5's batched entry).
+template <typename CT, typename SI, typename SO, bool WTA, bool BATCH = false>
 static cudaError_t vb_launch(const CT* C, const SI* S_in, SO* S_out, int H,
                              int W1, int D, int warps, int m, int up,
                              unsigned tag0, int p1, int p2, vb_word* edge,
-                             SgmWtaOut wta, cudaStream_t stream) {
+                             SgmWtaOut wta, cudaStream_t stream,
+                             int frames = 1) {
   return vb_by_k(D, [&](auto k) {
-    return vb_launch_k<CT, SI, SO, decltype(k)::value, WTA>(
+    return vb_launch_k<CT, SI, SO, decltype(k)::value, WTA, BATCH>(
         C, S_in, S_out, H, W1, D, warps, m, up, tag0, p1, p2, edge, wta,
-        stream);
+        stream, frames);
   });
 }
 
-template <typename CT, typename SI, typename SO, bool WTA>
+template <typename CT, typename SI, typename SO, bool WTA, bool BATCH = false>
 static cudaError_t vb_resident(int D, int warps, int m, int* blocks) {
   return vb_by_k(D, [&](auto k) {
-    return vb_resident_k<CT, SI, SO, decltype(k)::value, WTA>(D, warps, m,
-                                                              blocks);
+    return vb_resident_k<CT, SI, SO, decltype(k)::value, WTA, BATCH>(
+        D, warps, m, blocks);
   });
 }

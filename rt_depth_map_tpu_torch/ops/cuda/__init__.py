@@ -20,8 +20,15 @@ from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import (  # noqa: F401
     lr_resolve_bm,
     lr_resolve_sgbm,
 )
-from rt_depth_map_tpu_torch.ops.cuda.remap import rectify_pair, remap_u8  # noqa: F401
-from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import sgm_cost_volume  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.remap import (  # noqa: F401
+    rectify_pair,
+    rectify_pair_batch,
+    remap_u8,
+)
+from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (  # noqa: F401
+    sgm_cost_volume,
+    sgm_cost_volume_batch,
+)
 from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
     sgm_final_wta,
     sgm_horiz_pass,
@@ -29,7 +36,10 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_hdw import (  # noqa: F401
 )
 from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import sgm_horiz  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.sgm_tile import sgm_tile_final, sgm_tile_scan  # noqa: F401
-from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import sgm_vert_wta  # noqa: F401
+from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (  # noqa: F401
+    sgm_vert_wta,
+    sgm_vert_wta_batch,
+)
 from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import vol_transpose  # noqa: F401
 from rt_depth_map_tpu_torch.ops.cuda.wls import tridiag_smooth  # noqa: F401
 
@@ -39,6 +49,11 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/remap_plan.py:291"),
     (remap_u8, "rt_depth_map_tpu_torch/csrc/remap.cu",
      "rt_depth_map_tpu/ops/pallas/remap_plan.py:291"),
+    # the batch program's K1: the TPU kernel over the row-stacked B-frame
+    # source and its stacked plan
+    (rectify_pair_batch, "rt_depth_map_tpu_torch/csrc/remap.cu",
+     "rt_depth_map_tpu/ops/pallas/remap_plan.py:291 "
+     "(rt_depth_map_tpu/pipeline/engine.py:312-371)"),
     (seg_min_propagate, "rt_depth_map_tpu_torch/csrc/cc_sweep.cu",
      "rt_depth_map_tpu/ops/pallas/cc_sweep.py:249"),
     (bm_cost_wta, "rt_depth_map_tpu_torch/csrc/bm_kernel.cu",
@@ -51,12 +66,16 @@ KERNELS = (
      "rt_depth_map_tpu/ops/pallas/lr_resolve.py:106"),
     (sgm_cost_volume, "rt_depth_map_tpu_torch/csrc/sgm_cost.cu",
      "rt_depth_map_tpu/ops/pallas/sgm_cost.py:283"),
+    (sgm_cost_volume_batch, "rt_depth_map_tpu_torch/csrc/sgm_cost.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_cost.py:283 (batched: :314-333)"),
     (vol_transpose, "rt_depth_map_tpu_torch/csrc/vol_transpose.cu",
      "rt_depth_map_tpu/ops/pallas/vol_transpose.py:31"),
     (sgm_horiz, "rt_depth_map_tpu_torch/csrc/sgm_horiz.cu",
      "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:243"),
     (sgm_vert_wta, "rt_depth_map_tpu_torch/csrc/sgm_vert_wta.cu",
      "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:542"),
+    (sgm_vert_wta_batch, "rt_depth_map_tpu_torch/csrc/sgm_vert_wta.cu",
+     "rt_depth_map_tpu/ops/pallas/sgm_bidir.py:542 (seg, true_h: :382-390)"),
     (sgm_horiz_pass, "rt_depth_map_tpu_torch/csrc/sgm_hdw.cu",
      "rt_depth_map_tpu/ops/pallas/sgm_hdw.py:461, "
      "rt_depth_map_tpu/ops/pallas/sgm_hdw.py:524"),

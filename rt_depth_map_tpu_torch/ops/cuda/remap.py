@@ -12,6 +12,11 @@ owns 4 consecutive output pixels: their packed table words (`ops/remap.py`
 byte taps through the read-only cache, and whole 32-bit stores. It is
 bounded by device memory bytes.
 
+`rectify_pair_batch` does the same for B frames of both views in one
+launch (the frame a grid dimension: each frame samples its own planes
+through the shared tables), the port of K1 over the JAX engine's
+row-stacked batch source and its stacked plan.
+
 The wrappers take a table with the fields of `ops/remap.py` `RemapTable`:
 the plain versions read its unpacked ix, iy, fx, fy and valid, the kernel its
 `packed` words. Each launches the kernel for CUDA tensors and runs its plain
@@ -133,5 +138,47 @@ def rectify_pair(lgray: torch.Tensor, lrgb: torch.Tensor, rgray: torch.Tensor,
     return lrect, rgbr, rrect
 
 
+def rectify_pair_batch_plain(lgray: torch.Tensor, lrgb: torch.Tensor,
+                             rgray: torch.Tensor, left, right):
+    """`rectify_pair_plain` over the frames, stacked."""
+    outs = [rectify_pair_plain(lg, lc, rg, left, right)
+            for lg, lc, rg in zip(lgray, lrgb, rgray)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def rectify_pair_batch(lgray: torch.Tensor, lrgb: torch.Tensor,
+                       rgray: torch.Tensor, left, right):
+    """Both views of B stereo pairs in one launch: the left gray (B, H, W)
+    and RGB (B, H, W, 3) through the `left` table, the right gray (B, H, W)
+    through `right` -> contiguous (lrect (B, Ho, Wo), rgbr (B, Ho, Wo, 3),
+    rrect (B, Ho, Wo)) uint8, frame b equal to `rectify_pair` on frame
+    b's planes."""
+    if not _build.on_card(lgray, "rectify_pair_batch"):
+        return rectify_pair_batch_plain(lgray, lrgb, rgray, left, right)
+    B, H, W = lgray.shape
+    Ho, Wo = left.packed.shape
+    _build.require(lgray, "lgray", torch.uint8)
+    _build.require(lrgb, "lrgb", torch.uint8, (B, H, W, 3))
+    _build.require(rgray, "rgray", torch.uint8, (B, H, W))
+    _require_table(left, "rectify_pair_batch left", (H, W), (Ho, Wo))
+    _require_table(right, "rectify_pair_batch right", (H, W), (Ho, Wo))
+    dev = lgray.device
+    lrect = torch.empty((B, Ho, Wo), dtype=torch.uint8, device=dev)
+    rgbr = torch.empty((B, Ho, Wo, 3), dtype=torch.uint8, device=dev)
+    rrect = torch.empty((B, Ho, Wo), dtype=torch.uint8, device=dev)
+    P, I = _build.P, _build.I
+    lib, fn = _lib("rtdm_rectify_pair_batch",
+                   [P, P, I, I, I, I, P, P, P, P, P, P, P])
+    with torch.cuda.device(dev):
+        err = fn(left.packed.data_ptr(), right.packed.data_ptr(), Ho * Wo, B,
+                 H, W, lgray.data_ptr(), lrgb.data_ptr(), rgray.data_ptr(),
+                 lrect.data_ptr(), rgbr.data_ptr(), rrect.data_ptr(),
+                 _build.stream_of(lgray))
+    rectify_pair_batch.launches += 1
+    _build.check(lib, err, "rectify_pair_batch")
+    return lrect, rgbr, rrect
+
+
 remap_u8.launches = 0
 rectify_pair.launches = 0
+rectify_pair_batch.launches = 0

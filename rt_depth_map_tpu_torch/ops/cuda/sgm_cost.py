@@ -26,8 +26,15 @@ of that volume only, replicate border of the whole range included: the
 tile of the exact width tiling (`parallel/exact_sgbm.py`), one launch over
 the tile's columns.
 
-`sgm_cost_volume` launches the kernel for CUDA tensors and runs
-`sgm_cost_volume_plain` for CPU tensors; any other device raises.
+`sgm_cost_volume_batch` takes B frames' (B, H, W, 8) stacks and returns
+the (B, H, W1, D) volumes in one launch, the frame a grid dimension of the
+same kernel (each frame's window rows clamp to its own rows): the port of
+the TPU kernel's batched form (`sgm_cost.py:314-333`, `:404-424`: grid
+B x stripes, the lane-stacked volume).
+
+`sgm_cost_volume` and `sgm_cost_volume_batch` launch the kernel for CUDA
+tensors and run their plain versions for CPU tensors; any other device
+raises.
 """
 
 from __future__ import annotations
@@ -57,32 +64,33 @@ def _clamp_shift(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
 
 
 def sgbm_preprocess(img: torch.Tensor, ftzero: int):
-    """(sobel-clipped, raw) int32 planes (ops/sgbm.py `sgbm_preprocess`)."""
+    """(sobel-clipped, raw) int32 planes (ops/sgbm.py `sgbm_preprocess`) of
+    an (..., H, W) image: each (H, W) frame with its own borders."""
     x = img.to(torch.int32)
-    up = _clamp_shift(x, 1, 0)
-    down = _clamp_shift(x, -1, 0)
+    up = _clamp_shift(x, 1, -2)
+    down = _clamp_shift(x, -1, -2)
 
     def dx(row):
-        return _clamp_shift(row, -1, 1) - _clamp_shift(row, 1, 1)
+        return _clamp_shift(row, -1, -1) - _clamp_shift(row, 1, -1)
 
     sob = (2 * dx(x) + dx(up) + dx(down)).clamp(-ftzero, ftzero) + ftzero
-    sob[:, 0] = 0
-    sob[:, -1] = 0
+    sob[..., 0] = 0
+    sob[..., -1] = 0
     raw = x.clone()
-    raw[:, 0] = 0
-    raw[:, -1] = 0
+    raw[..., 0] = 0
+    raw[..., -1] = 0
     return sob, raw
 
 
 def halfpix(p: torch.Tensor):
-    """(min, max) of a plane and its half-pixel interpolants
-    (ops/sgbm.py `_halfpix`)."""
-    left = _clamp_shift(p, 1, 1)
-    right = _clamp_shift(p, -1, 1)
+    """(min, max) of an (..., H, W) plane and its half-pixel interpolants
+    along the rows (ops/sgbm.py `_halfpix`)."""
+    left = _clamp_shift(p, 1, -1)
+    right = _clamp_shift(p, -1, -1)
     al = torch.div(p + left, 2, rounding_mode="floor")
     ar = torch.div(p + right, 2, rounding_mode="floor")
-    al[:, 0] = p[:, 0]
-    ar[:, -1] = p[:, -1]
+    al[..., 0] = p[..., 0]
+    ar[..., -1] = p[..., -1]
     return (torch.minimum(p, torch.minimum(al, ar)),
             torch.maximum(p, torch.maximum(al, ar)))
 
@@ -94,9 +102,10 @@ def _planes(img: torch.Tensor, ftzero: int):
 
 
 def plane_stack(img: torch.Tensor, pre_filter_cap: int) -> torch.Tensor:
-    """(H, W, 8) uint8 for an (H, W) uint8 image: the clipped x-Sobel
-    response, its half-pixel min and max, the raw image, its half-pixel min
-    and max (every value fits 8 bits while ftzero <= 127), and two zeros."""
+    """(..., H, W, 8) uint8 for an (..., H, W) uint8 image (one frame or a
+    batch of B, each with its own borders): the clipped x-Sobel response,
+    its half-pixel min and max, the raw image, its half-pixel min and max
+    (every value fits 8 bits while ftzero <= 127), and two zeros."""
     ftzero = ftzero_of(pre_filter_cap)
     if ftzero > 127:
         raise ValueError(f"pre_filter_cap={pre_filter_cap}: the planes need "
@@ -177,14 +186,27 @@ def sgm_cost_volume_plain(lpl: torch.Tensor, rpl: torch.Tensor,
     return C.to(dtype), minX1, W1
 
 
-def _fn():
+def _fn(name: str = "rtdm_sgm_cost"):
     lib = _build.load("sgm_cost")
-    fn = lib.rtdm_sgm_cost
+    fn = getattr(lib, name)
     if fn.argtypes is None:
         P, I = _build.P, _build.I
-        fn.argtypes = [P, P, I, I, I, I, I, I, I, I, I, I, P, P]
+        fn.argtypes = ([P, P] + [I] * (11 if name.endswith("batch") else 10)
+                       + [P, P])
         fn.restype = I
     return lib, fn
+
+
+def _check_geometry(what: str, W: int, D: int, bs: int, minD: int,
+                    dtype: torch.dtype):
+    """(minX1, W1) of a launch, or raise for what the kernel does not take."""
+    minX1, W1 = cost_geometry(W, D, minD)
+    if not (1 <= D <= 1024 and W1 >= 1) or bs % 2 == 0 or bs > 11:
+        raise ValueError(f"{what}: unsupported D={D}, min_disp={minD}, "
+                         f"block_size={bs} at width {W}")
+    if dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"{what}: dtype must be int16 or int32, got {dtype}")
+    return minX1, W1
 
 
 def sgm_cost_volume(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
@@ -203,12 +225,7 @@ def sgm_cost_volume(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
         raise ValueError(f"sgm_cost_volume: unsupported device {lpl.device}")
     H, W = lpl.shape[:2]
     D, bs, minD = int(num_disp), int(block_size), int(min_disp)
-    minX1, W1 = cost_geometry(W, D, minD)
-    if not (1 <= D <= 1024 and W1 >= 1) or bs % 2 == 0 or bs > 11:
-        raise ValueError(f"sgm_cost_volume: unsupported D={D}, min_disp={minD}, "
-                         f"block_size={bs} at width {W}")
-    if dtype not in (torch.int16, torch.int32):
-        raise ValueError(f"sgm_cost_volume: dtype must be int16 or int32, got {dtype}")
+    minX1, W1 = _check_geometry("sgm_cost_volume", W, D, bs, minD, dtype)
     x_begin, width = _column_window(W1, cols)
     _build.require(lpl, "lpl", torch.uint8, (H, W, 8))
     _build.require(rpl, "rpl", torch.uint8, (H, W, 8))
@@ -224,3 +241,42 @@ def sgm_cost_volume(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
 
 
 sgm_cost_volume.launches = 0
+
+
+def sgm_cost_volume_batch_plain(lpl: torch.Tensor, rpl: torch.Tensor,
+                                num_disp: int, block_size: int,
+                                dtype: torch.dtype = torch.int32,
+                                min_disp: int = 0):
+    """`sgm_cost_volume_plain` over the frames: (C (B, H, W1, D), minX1,
+    W1)."""
+    vols = [sgm_cost_volume_plain(lp, rp, num_disp, block_size, dtype,
+                                  min_disp) for lp, rp in zip(lpl, rpl)]
+    return torch.stack([v[0] for v in vols]), vols[0][1], vols[0][2]
+
+
+def sgm_cost_volume_batch(lpl: torch.Tensor, rpl: torch.Tensor, num_disp: int,
+                          block_size: int, dtype: torch.dtype = torch.int32,
+                          min_disp: int = 0):
+    """(C, minX1, W1) of B frames from their (B, H, W, 8) uint8
+    `plane_stack`s in one launch: C is (B, H, W1, D) in `dtype`, frame b
+    equal to `sgm_cost_volume(lpl[b], rpl[b], ...)`."""
+    if not _build.on_card(lpl, "sgm_cost_volume_batch"):
+        return sgm_cost_volume_batch_plain(lpl, rpl, num_disp, block_size,
+                                           dtype, min_disp)
+    B, H, W = lpl.shape[:3]
+    D, bs, minD = int(num_disp), int(block_size), int(min_disp)
+    minX1, W1 = _check_geometry("sgm_cost_volume_batch", W, D, bs, minD, dtype)
+    _build.require(lpl, "lpl", torch.uint8, (B, H, W, 8))
+    _build.require(rpl, "rpl", torch.uint8, (B, H, W, 8))
+    out = torch.empty((B, H, W1, D), dtype=dtype, device=lpl.device)
+    lib, fn = _fn("rtdm_sgm_cost_batch")
+    with torch.cuda.device(lpl.device):
+        err = fn(lpl.data_ptr(), rpl.data_ptr(), B, H, W, D, bs, minD, minX1,
+                 W1, 0, W1, out.element_size(), out.data_ptr(),
+                 _build.stream_of(lpl))
+    sgm_cost_volume_batch.launches += 1
+    _build.check(lib, err, "sgm_cost_volume_batch")
+    return out, minX1, W1
+
+
+sgm_cost_volume_batch.launches = 0

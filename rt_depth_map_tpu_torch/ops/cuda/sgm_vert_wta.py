@@ -22,15 +22,27 @@ x SMs). What bounds the width is a band's carries in shared memory, about
 20 x D bytes a column over W1 / resident blocks columns: 3840x2160 fits at
 D = 256.
 
-`sgm_vert_wta` launches the kernels for CUDA tensors and runs
-`sgm_vert_wta_plain` for CPU tensors; any other device raises.
+`sgm_vert_wta_batch` runs B frames of (H, W1, D) in the same pair of
+launches, the port of the TPU kernel's lane-stacked form (`seg` and
+`true_h`, `sgm_bidir.py:382-390`, `:543-592`): each frame owns whole bands
+(grid.y is the frame), so its diagonal carries start from the zero image
+border at its first and last column and never read the neighbouring
+frame's edge column. The band plan (`batch_plan_on_card`) gives each frame
+1/F of the resident blocks; where F = B frames do not fit a launch (their
+bands' carries outgrow shared memory), the batch goes in launches of as
+many frames as fit, split evenly (`split_batch`).
+
+`sgm_vert_wta` and `sgm_vert_wta_batch` launch the kernels for CUDA tensors
+and run their plain versions for CPU tensors; any other device raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import warnings
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -171,9 +183,13 @@ def _fn():
         P, I = _build.P, _build.I
         fn.argtypes = [P, I, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P, P]
         fn.restype = I
-        lib.rtdm_sgm_vert_wta_resident.argtypes = [
-            I, I, I, I, ctypes.POINTER(ctypes.c_int)]
-        lib.rtdm_sgm_vert_wta_resident.restype = I
+        for name in ("rtdm_sgm_vert_wta_resident",
+                     "rtdm_sgm_vert_wta_batch_resident"):
+            getattr(lib, name).argtypes = [I, I, I, I,
+                                           ctypes.POINTER(ctypes.c_int)]
+            getattr(lib, name).restype = I
+        lib.rtdm_sgm_vert_wta_batch.argtypes = [P, I, P, P, P] + [I] * 9 + [P] * 5
+        lib.rtdm_sgm_vert_wta_batch.restype = I
     return lib, fn
 
 
@@ -223,3 +239,106 @@ def sgm_vert_wta(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
 
 
 sgm_vert_wta.launches = 0
+
+
+def sgm_vert_wta_batch_plain(C: torch.Tensor, Sh: torch.Tensor, p1: int,
+                             p2: int, uniqueness_ratio: int):
+    """`sgm_vert_wta_plain` over the frames: four (B, H, W1) int32 maps."""
+    outs = [sgm_vert_wta_plain(c, s, p1, p2, uniqueness_ratio)
+            for c, s in zip(C, Sh)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+@dataclass(frozen=True)
+class BatchPlan:
+    """A batch in launches of `frames` frames (the last may hold fewer),
+    each frame on `plan.bands` bands."""
+    frames: int
+    plan: VertPlan
+
+
+def split_batch(B: int, plan_for: Callable[[int], VertPlan]) -> BatchPlan:
+    """The fewest launches for B frames, split evenly: `plan_for(F)` plans
+    a launch of F frames or raises ValueError / RuntimeError where they do
+    not fit. Raises where not even one frame fits."""
+    if B < 1:
+        raise ValueError(f"split_batch: B={B}")
+    for fmax in range(B, 0, -1):
+        try:
+            plan_for(fmax)
+            break
+        except (ValueError, RuntimeError):
+            continue
+    else:
+        plan_for(1)  # raises why one frame does not fit
+    F = -(-B // -(-B // fmax))  # B over the fewest launches, evenly
+    return BatchPlan(F, plan_for(F))
+
+
+def batch_plan_on_card(resident_fn, B: int, W1: int, D: int, c_bytes: int,
+                       s_bytes: int) -> BatchPlan:
+    """`split_batch` of `plan_on_card`, a frame of F sharing the resident
+    blocks of the batched kernel `resident_fn` reports."""
+    def plan_for(F):
+        return plan_on_card(lambda warps, m: resident_fn(warps, m) // F, W1, D,
+                            c_bytes, s_bytes)
+    return split_batch(B, plan_for)
+
+
+@functools.lru_cache(maxsize=None)
+def k5_batch_plan(B: int, W1: int, D: int, c_bytes: int, device) -> BatchPlan:
+    """The launches and bands of `sgm_vert_wta_batch` for B frames (kept per
+    shape, as `k5_plan`)."""
+    lib, _ = _fn()
+    with torch.cuda.device(device):
+        bp = batch_plan_on_card(
+            resident_fn(lib, "rtdm_sgm_vert_wta_batch_resident", c_bytes, D),
+            B, W1, D, c_bytes, 4)
+    if bp.frames == 1 < B:
+        warnings.warn(f"sgm_vert_wta_batch: one frame of W1={W1}, D={D} a "
+                      f"launch, {B} launch pairs", RuntimeWarning)
+    return bp
+
+
+def sgm_vert_wta_batch(C: torch.Tensor, Sh: torch.Tensor, p1: int, p2: int,
+                       uniqueness_ratio: int):
+    """(best, minS, dval, uniq), each (B, H, W1) int32, of B frames: the
+    (B, H, W1, D) int16/int32 cost volumes C and (B, H, W1, D) int32
+    horizontal sums Sh; frame b equals `sgm_vert_wta(C[b], Sh[b], ...)`.
+    One pair of cooperative launches for the batch, or for each group of
+    `k5_batch_plan(...).frames` frames where the batch does not fit one."""
+    if not _build.on_card(C, "sgm_vert_wta_batch"):
+        return sgm_vert_wta_batch_plain(C, Sh, p1, p2, uniqueness_ratio)
+    B, H, W1, D = C.shape
+    if not 1 <= D <= 256:
+        raise ValueError(f"sgm_vert_wta_batch: unsupported D={D}")
+    if C.dtype not in (torch.int16, torch.int32):
+        raise ValueError(f"C must be int16 or int32, got {C.dtype}")
+    _build.require(C, "C", C.dtype)
+    _build.require(Sh, "Sh", torch.int32, (B, H, W1, D))
+    C, Sh = aligned(C), aligned(Sh)
+    dev = C.device
+    S = torch.empty((B, H, W1, D), dtype=torch.int32, device=dev)
+    outs = [torch.empty((B, H, W1), dtype=torch.int32, device=dev)
+            for _ in range(4)]
+    lib, _ = _fn()
+    cb = C.element_size()
+    bp = k5_batch_plan(B, W1, D, cb, dev)
+    plan = bp.plan
+    starts = range(0, B, bp.frames)
+    edge = torch.zeros((len(starts), bp.frames, plan.bands, 2, 2, D),
+                       dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        for i, b0 in enumerate(starts):
+            F = min(bp.frames, B - b0)
+            err = lib.rtdm_sgm_vert_wta_batch(
+                C[b0].data_ptr(), cb, Sh[b0].data_ptr(), S[b0].data_ptr(),
+                edge[i].data_ptr(), F, H, W1, D, plan.warps, plan.m, int(p1),
+                int(p2), int(uniqueness_ratio), *[o[b0].data_ptr() for o in outs],
+                _build.stream_of(C))
+            sgm_vert_wta_batch.launches += 1
+            _build.check(lib, err, "sgm_vert_wta_batch")
+    return tuple(outs)
+
+
+sgm_vert_wta_batch.launches = 0

@@ -49,18 +49,22 @@ def row_segments(kernel: np.ndarray) -> List[Tuple[int, int, int]]:
 
 
 def _morph(img: torch.Tensor, segs, is_erode: bool) -> torch.Tensor:
+    """img: (H, W), or (B, H, W) frames, each padded at its own borders."""
     pad_val = 255 if is_erode else 0
-    H, W = img.shape
+    H, W = img.shape[-2:]
     maxl = max(-dxl for _, dxl, _ in segs)
     maxr = max(dxr for _, _, dxr in segs)
     maxu = max(-dy for dy, _, _ in segs)
     maxd = max(dy for dy, _, _ in segs)
-    xp = F.pad(img[None], (maxl, maxr, maxu, maxd), value=pad_val)[0]
+    xp = F.pad(img.view(-1, H, W), (maxl, maxr, maxu, maxd),
+               value=pad_val).view(*img.shape[:-2], H + maxu + maxd,
+                                   W + maxl + maxr)
     out = None
     for dy, dxl, dxr in segs:
         L = dxr - dxl + 1
-        rows = xp[maxu + dy: maxu + dy + H, maxl + dxl: maxl + dxl + W + L - 1]
-        win = rows.unfold(1, L, 1)  # (H, W, L): columns x+dxl .. x+dxr
+        rows = xp[..., maxu + dy: maxu + dy + H,
+                  maxl + dxl: maxl + dxl + W + L - 1]
+        win = rows.unfold(-1, L, 1)  # (..., H, W, L): columns x+dxl .. x+dxr
         red = win.amin(-1) if is_erode else win.amax(-1)
         if out is None:
             out = red
@@ -70,12 +74,14 @@ def _morph(img: torch.Tensor, segs, is_erode: bool) -> torch.Tensor:
 
 
 def erode(img: torch.Tensor, segs) -> torch.Tensor:
-    """cv::erode parity (min over the footprint), uint8 (H, W)."""
+    """cv::erode parity (min over the footprint), uint8 (H, W) or
+    (B, H, W)."""
     return _morph(img, segs, True)
 
 
 def dilate(img: torch.Tensor, segs) -> torch.Tensor:
-    """cv::dilate parity (max over the footprint), uint8 (H, W)."""
+    """cv::dilate parity (max over the footprint), uint8 (H, W) or
+    (B, H, W)."""
     return _morph(img, segs, False)
 
 

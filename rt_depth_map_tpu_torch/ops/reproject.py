@@ -23,8 +23,9 @@ def disparity_fixed_to_float(disp16: torch.Tensor) -> torch.Tensor:
 
 def reproject_to_3d(disp: torch.Tensor, Q: torch.Tensor, min_disparity: int = 0,
                     handle_missing: bool = True) -> torch.Tensor:
-    """(H, W) integer disparity -> (H, W, 3) float32 XYZ; Q: (4, 4) float32."""
-    H, W = disp.shape
+    """(..., H, W) integer disparity -> (..., H, W, 3) float32 XYZ; Q: (4, 4)
+    float32."""
+    H, W = disp.shape[-2:]
     d = disp.to(torch.float32)
     xs = torch.arange(W, dtype=torch.float32, device=disp.device)[None, :]
     ys = torch.arange(H, dtype=torch.float32, device=disp.device)[:, None]
@@ -45,20 +46,23 @@ def calc_depth(xyz: torch.Tensor, mask: torch.Tensor, boxes: torch.Tensor,
     """(depth_cm, mean_z, count), each (K,): masked mean Z per valid box,
     NaN where a box is invalid or holds no accepted pixel. `extra` (H, W):
     a fourth output, its mean over the same accepted pixels (the
-    SHOW_DISPARITY_VALUE mean disparity shares the depth loop's condition)."""
-    H, W = mask.shape
+    SHOW_DISPARITY_VALUE mean disparity shares the depth loop's condition).
+    A batch: xyz (B, H, W, 3), mask (B, H, W), boxes (B, K, 5), extra
+    (B, H, W) -> (B, K) outputs."""
+    H, W = mask.shape[-2:]
     Z = xyz[..., 2]
     ok = (((Z - MISSING_Z).abs() >= FLT_EPSILON) & (Z.abs() <= 1.0e4)
           & (mask != 0))
     xs = torch.arange(W, device=mask.device)[None, None, :]
     ys = torch.arange(H, device=mask.device)[None, :, None]
-    x, y, w, h, valid = (boxes[:, i, None, None] for i in range(5))
+    x, y, w, h, valid = (boxes[..., i, None, None] for i in range(5))
     inside = (xs >= x) & (xs < x + w) & (ys >= y) & (ys < y + h) & (valid > 0)
-    m = inside & ok[None]
-    count = m.sum(dim=(1, 2), dtype=torch.int32)
+    m = inside & ok.unsqueeze(-3)
+    count = m.sum(dim=(-2, -1), dtype=torch.int32)
 
     def mean(plane):
-        s = torch.where(m, plane.to(torch.float32)[None], 0.0).sum(dim=(1, 2))
+        s = torch.where(m, plane.to(torch.float32).unsqueeze(-3),
+                        0.0).sum(dim=(-2, -1))
         return torch.where(count > 0, s / count.clamp(min=1), float("nan"))
 
     mean_z = mean(Z)

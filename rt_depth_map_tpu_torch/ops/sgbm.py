@@ -27,8 +27,20 @@ two pixel axes, as the TPU's K12 turns (H, D, W1) into (W1, D, H) and back
 around its K4; the chained route scans the row-major volume directly (the
 TPU transposes there only to put D on its sublanes).
 
-`stereo_sgbm` and `Engine.frame_program` take an optional `mark(name)`
-callback, called after each stage (the stage profile of `chip_smoke.py`).
+`stereo_sgbm_batch` matches B frames at once (ops/sgbm.py
+`stereo_sgbm_batch`), each frame bit-identical to `stereo_sgbm`. Where the
+single frame takes the bidir route at min_disparity 0, every stage is one
+launch for the batch: K3's batched entry, K12, K4 and K12 on the volumes
+viewed as B * H rows (the horizontal paths and the transposes never mix
+rows), K5's batched entry (each frame's diagonal carries start at its own
+image border), K6 on the (B * H, W) rows (the LR check is row-local);
+only the speckle filter runs frame by frame, as in the reference. Any
+other configuration runs `stereo_sgbm` over the frames, as the reference
+does.
+
+`stereo_sgbm`, `stereo_sgbm_batch` and `Engine.frame_program` take an
+optional `mark(name)` callback, called after each stage (the stage
+profile of `chip_smoke.py`).
 """
 
 from __future__ import annotations
@@ -48,6 +60,8 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_cost import (  # noqa: F401
     plane_stack,
     sgbm_preprocess,
     sgm_cost_volume,
+    sgm_cost_volume_batch,
+    sgm_cost_volume_batch_plain,
     sgm_cost_volume_plain,
     volume_dtype,
 )
@@ -67,6 +81,8 @@ from rt_depth_map_tpu_torch.ops.cuda.sgm_horiz import (
 )
 from rt_depth_map_tpu_torch.ops.cuda.sgm_vert_wta import (  # noqa: F401
     sgm_vert_wta,
+    sgm_vert_wta_batch,
+    sgm_vert_wta_batch_plain,
     sgm_vert_wta_plain,
     wta_uniq_subpix,
 )
@@ -159,19 +175,26 @@ def uses_bidir(num_paths: int, H: int, W: int, D: int, min_disp: int = 0) -> boo
 
 def aggregate_bidir(C: torch.Tensor, p1: int, p2: int, uniqueness_ratio: int,
                     plain: bool = False, mark: Callable[[str], None] = _no_mark):
-    """(best, minS, dval, uniq) of the 8 paths over the (H, W1, D) volume C
-    through the fused kernels: K12, K4, K12, K5."""
-    Ct = swap_pixel_axes(C, plain)
+    """(best, minS, dval, uniq) of the 8 paths over the (H, W1, D) volume C,
+    or the (B, H, W1, D) volumes of a batch, through the fused kernels:
+    K12, K4, K12 on the (B * H, W1, D) rows (none of them mixes rows), then
+    K5 or its batched entry."""
+    *_, W1, D = C.shape
+    batch = C.dim() == 4
+    Ct = swap_pixel_axes(C.view(-1, W1, D), plain)
     mark("K12 cost volume to x-major")
     Sh_t = (sgm_horiz_plain if plain else sgm_horiz)(Ct, p1, p2)
     del Ct
     mark("K4 horizontal paths")
-    Sh = swap_pixel_axes(Sh_t, plain)
+    Sh = swap_pixel_axes(Sh_t, plain).view(C.shape)
     del Sh_t
     mark("K12 horizontal sum to row-major")
-    vert = sgm_vert_wta_plain if plain else sgm_vert_wta
+    if batch:
+        vert = sgm_vert_wta_batch_plain if plain else sgm_vert_wta_batch
+    else:
+        vert = sgm_vert_wta_plain if plain else sgm_vert_wta
     out = vert(C, Sh, p1, p2, uniqueness_ratio)
-    mark("K5 vertical + diagonal paths, WTA")
+    mark("K5 vertical + diagonal paths, WTA" + (" (batch)" if batch else ""))
     return out
 
 
@@ -212,13 +235,12 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     check_config(cfg, W)
     D = cfg.num_disparities
     minD = cfg.min_disparity
-    invalid = (minD - 1) * DISP_SCALE
     p1 = cfg.p1
     p2 = max(cfg.p2, p1 + 1)
 
-    C, minX1, width1 = sgbm_cost_volume(left, right, D, cfg.block_size,
-                                        cfg.pre_filter_cap, plain=plain,
-                                        mark=mark, min_disp=minD)
+    C, minX1, _ = sgbm_cost_volume(left, right, D, cfg.block_size,
+                                   cfg.pre_filter_cap, plain=plain,
+                                   mark=mark, min_disp=minD)
     mark("K3 cost volume")
     if uses_bidir(cfg.num_paths, H, W, D, minD):
         best, minS, dval, uniq = aggregate_bidir(C, p1, p2, cfg.uniqueness_ratio,
@@ -228,17 +250,71 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
             C, path_count(cfg.num_paths), p1, p2, cfg.uniqueness_ratio, plain,
             mark)
     del C
+    return _finish(best, minS, dval, uniq, cfg, W, minX1, plain, mark)
 
-    disp = torch.full((H, W), invalid, dtype=torch.int16, device=left.device)
+
+def _finish(best, minS, dval, uniq, cfg: MatcherConfig, W: int, minX1: int,
+            plain: bool, mark: Callable[[str], None]) -> torch.Tensor:
+    """The int16 x16 disparity of one frame or a batch from the winner-take-
+    all's (..., H, W1) outputs: the uniqueness test, the LR check on the
+    (rows, W) rows, then the speckle filter frame by frame."""
+    *lead, H, W1 = best.shape
+    D = cfg.num_disparities
+    minD = cfg.min_disparity
+    invalid = (minD - 1) * DISP_SCALE
+    disp = torch.full((*lead, H, W), invalid, dtype=torch.int16,
+                      device=best.device)
     if minD:
         dval = dval + minD * DISP_SCALE
-    disp[:, minX1: minX1 + width1] = torch.where(uniq != 0, invalid, dval).to(torch.int16)
+    disp[..., minX1: minX1 + W1] = torch.where(uniq != 0, invalid, dval).to(torch.int16)
     if cfg.disp12_max_diff >= 0:
-        disp = lr_check_sgbm(disp, best, minS, minX1, width1, D,
-                             cfg.disp12_max_diff, minD, plain=plain)
+        disp = lr_check_sgbm(disp.view(-1, W), best.view(-1, W1),
+                             minS.view(-1, W1), minX1, W1, D,
+                             cfg.disp12_max_diff, minD,
+                             plain=plain).view(disp.shape)
     mark("LR check (K6)")
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
-        disp = filter_speckles(disp, invalid, cfg.speckle_window_size,
-                               cfg.speckle_range * DISP_SCALE, plain=plain)
+        frames = [filter_speckles(d, invalid, cfg.speckle_window_size,
+                                  cfg.speckle_range * DISP_SCALE, plain=plain)
+                  for d in disp.view(-1, H, W)]
+        disp = frames[0] if not lead else torch.stack(frames)
     mark("speckle (K2 + K7 + K2 + apply)")
     return disp
+
+
+def uses_batch_route(cfg: MatcherConfig, H: int, W: int) -> bool:
+    """Whether `stereo_sgbm_batch` runs its batched kernels (the reference's
+    gate, ops/sgbm.py:673-682, without the TPU's W1 % 128 lane tile): the
+    bidir route at min_disparity 0."""
+    return cfg.min_disparity == 0 and uses_bidir(
+        cfg.num_paths, H, W, cfg.num_disparities, 0)
+
+
+def stereo_sgbm_batch(lefts: torch.Tensor, rights: torch.Tensor,
+                      cfg: MatcherConfig, plain: bool = False,
+                      mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+    """(B, H, W) int16 x16 disparities of (B, H, W) uint8 rectified gray
+    planes, frame b bit-identical to `stereo_sgbm(lefts[b], rights[b],
+    cfg)`. On the batched route each stage is one launch for the B frames
+    (module docstring); elsewhere `stereo_sgbm` runs frame by frame."""
+    mark = mark or _no_mark
+    B, H, W = lefts.shape
+    if not uses_batch_route(cfg, H, W):
+        return torch.stack([stereo_sgbm(lf, rf, cfg, plain=plain, mark=mark)
+                            for lf, rf in zip(lefts, rights)])
+    check_config(cfg, W)
+    D = cfg.num_disparities
+    p1 = cfg.p1
+    p2 = max(cfg.p2, p1 + 1)
+    lpl = plane_stack(lefts, cfg.pre_filter_cap)
+    rpl = plane_stack(rights, cfg.pre_filter_cap)
+    mark("SGM preprocess: plane_stack x2 (batch)")
+    cost = sgm_cost_volume_batch_plain if plain else sgm_cost_volume_batch
+    C, minX1, _ = cost(lpl, rpl, D, cfg.block_size,
+                       volume_dtype(cfg.block_size, cfg.pre_filter_cap))
+    del lpl, rpl
+    mark("K3 cost volume (batch)")
+    best, minS, dval, uniq = aggregate_bidir(C, p1, p2, cfg.uniqueness_ratio,
+                                             plain, mark)
+    del C
+    return _finish(best, minS, dval, uniq, cfg, W, minX1, plain, mark)

@@ -29,13 +29,18 @@ over the depth mean's pixels, and `labels()` shows it.
 
 The HSV thresholds and the minimum object size change at run time
 (`set_hsv_thresholds`, `set_min_object_size`) without a rebuild. With
-`EngineConfig.batch` B > 1 the engine runs the "pipelined" multi-stream
-mode: B independent frame programs a step, each on a CUDA stream of its own
-(`dispatch_batch`, `process_batch`, `step_batch`).
+`EngineConfig.batch` B > 1, `process_batch` and `step_batch` run B rigs a
+step through one B-frame program (`batch_program`, the reference's fused
+`_build_batch_frame_fn`) on the current stream: the batched K1 (both views
+of every frame in one launch), the colour and morphology stages over the
+batch, detection frame by frame, and for SGM `stereo_sgbm_batch`, whose
+K3, K12, K4, K12, K5 and K6 are each one launch for the B frames. Each of
+its frames equals `frame_program` on its pair. `dispatch_batch` runs the
+reference's pipelined mode instead: B independent frame programs, each on
+a CUDA stream of its own, returned without waiting.
 
 PyTorch runs eagerly, so there is no compile step; the CUDA kernels build at
-their first launch. Not ported: the reference's "fused" and "unrolled"
-batch modes (TPU lane-stacking; ROADMAP.md).
+their first launch.
 """
 
 from __future__ import annotations
@@ -54,7 +59,12 @@ from rt_depth_map_tpu_torch.config import EngineConfig
 from rt_depth_map_tpu_torch.convert import engine_state_from_numpy
 from rt_depth_map_tpu_torch.ops.bm import stereo_bm
 from rt_depth_map_tpu_torch.ops.color import in_range, rgb_to_gray, rgb_to_hsv
-from rt_depth_map_tpu_torch.ops.cuda.remap import rectify_pair, rectify_pair_plain
+from rt_depth_map_tpu_torch.ops.cuda.remap import (
+    rectify_pair,
+    rectify_pair_batch,
+    rectify_pair_batch_plain,
+    rectify_pair_plain,
+)
 from rt_depth_map_tpu_torch.ops.detect import detect_objects, matching_region
 from rt_depth_map_tpu_torch.ops.morphology import morph_open_close
 from rt_depth_map_tpu_torch.ops.reproject import (
@@ -63,7 +73,7 @@ from rt_depth_map_tpu_torch.ops.reproject import (
     reproject_to_3d,
 )
 from rt_depth_map_tpu_torch.ops.sgbm import check_config as check_sgm_config
-from rt_depth_map_tpu_torch.ops.sgbm import stereo_sgbm
+from rt_depth_map_tpu_torch.ops.sgbm import _no_mark, stereo_sgbm, stereo_sgbm_batch
 from rt_depth_map_tpu_torch.ops.wls import right_matcher_config, wls_filter
 from rt_depth_map_tpu_torch.pipeline.stats import ExecTimeStats
 from rt_depth_map_tpu_torch.sources import make_source
@@ -130,9 +140,7 @@ class Engine:
     """Pipeline orchestrator (Estimator parity) for one device.
 
     device: "cuda" (the kernels run on the card; raises when CUDA is not
-    available) or "cpu" (the kernels' plain versions run, for tests).
-    batch_mode: how `process_batch` runs cfg.batch > 1 pairs; the port has
-    the reference's default, "pipelined", only."""
+    available) or "cpu" (the kernels' plain versions run, for tests)."""
 
     def __init__(
         self,
@@ -140,20 +148,13 @@ class Engine:
         rectification: Optional[RectificationResult] = None,
         source=None,
         device="cuda",
-        batch_mode: str = "pipelined",
     ):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Engine(device='cuda'): CUDA is not available")
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {device}")
-        if batch_mode != "pipelined":
-            raise NotImplementedError(
-                f"batch_mode {batch_mode!r}: the port runs the pipelined mode "
-                "only (the fused and unrolled modes are TPU lane-stacking; "
-                "see ROADMAP.md)")
         self.cfg = cfg
-        self.batch_mode = batch_mode
         self.device = device
         self.source = source if source is not None else make_source(cfg)
         self.decoder = None  # built at the first MJPEG frame
@@ -204,11 +205,30 @@ class Engine:
         self.max_consecutive_decode_failures = 30
         self._consecutive_failures = 0
         self._frames_done = 0
-        # the pipelined batch mode's streams, one a rig, made once
+        # dispatch_batch's streams, one a rig, made once
         self._streams = ([torch.cuda.Stream(device) for _ in range(cfg.batch)]
                          if device.type == "cuda" and cfg.batch > 1 else None)
 
     # -- device program ----------------------------------------------------
+    def _depth(self, disp, filt, boxes, rgbr, filtered,
+               mark: Callable[[str], None]) -> dict:
+        """/16, the reprojection and the per-box depth of one frame or a
+        batch (leading B), and the output dict."""
+        st = self.state
+        dint = disparity_fixed_to_float(disp)
+        xyz = reproject_to_3d(dint, st.Q, st.matcher.min_disparity, True)
+        mark("/16 + reprojection")
+        # SHOW_DISPARITY_VALUE (estimator.h:33): the mean disparity per box
+        # over the same accepted pixels as the depth mean
+        extra = dint if self.cfg.show_disparity_value else None
+        depth_cm, mean_z, count, *disp_mean = calc_depth(
+            xyz, filt, boxes, self.cfg.calibration_unit_mm, extra=extra)
+        mark("calc_depth")
+        return dict(disparity=disp, boxes=boxes, depth_cm=depth_cm,
+                    mean_z=mean_z, count=count, mask=filt, rgb_rect=rgbr,
+                    filtered_disparity=filtered,
+                    disparity_mean=disp_mean[0] if disp_mean else None)
+
     def frame_program(self, left_rgb: torch.Tensor, right_rgb: torch.Tensor,
                       plain: bool = False,
                       mark: Optional[Callable[[str], None]] = None) -> dict:
@@ -218,7 +238,7 @@ class Engine:
         mark(name), when given, is called after each stage (a stage
         profile records a CUDA event there)."""
         cfg, st = self.cfg, self.state
-        mark = mark or (lambda name: None)
+        mark = mark or _no_mark
         lg = rgb_to_gray(left_rgb)
         rg = rgb_to_gray(right_rgb)
         mark("gray x2")
@@ -253,20 +273,63 @@ class Engine:
             disp_r = match(rrect, lrect, rcfg, plain=plain, mark=rmark)
             filtered, _ = wls_filter(disp, disp_r, lrect, st.matcher, plain=plain)
             mark("WLS: confidence + FGS")
+        return self._depth(disp, filt, boxes, rgbr, filtered, mark)
 
-        dint = disparity_fixed_to_float(disp)
-        xyz = reproject_to_3d(dint, st.Q, st.matcher.min_disparity, True)
-        mark("/16 + reprojection")
-        # SHOW_DISPARITY_VALUE (estimator.h:33): the mean disparity per box
-        # over the same accepted pixels as the depth mean
-        extra = dint if cfg.show_disparity_value else None
-        depth_cm, mean_z, count, *disp_mean = calc_depth(
-            xyz, filt, boxes, cfg.calibration_unit_mm, extra=extra)
-        mark("calc_depth")
-        return dict(disparity=disp, boxes=boxes, depth_cm=depth_cm,
-                    mean_z=mean_z, count=count, mask=filt, rgb_rect=rgbr,
-                    filtered_disparity=filtered,
-                    disparity_mean=disp_mean[0] if disp_mean else None)
+    def batch_program(self, lefts: torch.Tensor, rights: torch.Tensor,
+                      plain: bool = False,
+                      mark: Optional[Callable[[str], None]] = None) -> dict:
+        """B frames on (B, H, W, 3) uint8 device tensors -> dict of stacked
+        device tensors (FrameResult's fields with a leading B), frame b
+        equal to `frame_program(lefts[b], rights[b])`: the reference's
+        B-frame program (`_step_batch`, its fused form): gray, one batched
+        K1 launch (`rectify_pair_batch`), HSV, inRange and morphology over
+        the batch, detection frame by frame, `stereo_sgbm_batch` (BM:
+        `stereo_bm` frame by frame in each frame's ROI), with the post
+        filter the right matcher through `stereo_sgbm_batch` and the WLS
+        filter frame by frame, then the depth over the batch. plain and
+        mark as in `frame_program`."""
+        mark = mark or _no_mark
+        cfg, st = self.cfg, self.state
+        lg = rgb_to_gray(lefts)
+        rg = rgb_to_gray(rights)
+        mark("gray x2 (batch)")
+        rectify = rectify_pair_batch_plain if plain else rectify_pair_batch
+        lrect, rgbr, rrect = rectify(lg, lefts, rg, st.left, st.right)
+        mark("remap K1 (both views, batch)")
+        hsv = rgb_to_hsv(rgbr)
+        mask = in_range(hsv, st.hsv_low, st.hsv_high)
+        mark("HSV + inRange (batch)")
+        filt = morph_open_close(mask, st.morph_segments)
+        mark("morphology open+close (batch)")
+        boxes = torch.stack([detect_objects(f, st.min_object_size,
+                                            cfg.max_objects, plain=plain)
+                             for f in filt])
+        mark("detect: K2 boxes, roots (frame by frame)")
+        if st.matcher.kind == "sgm":
+            disp = stereo_sgbm_batch(lrect, rrect, st.matcher, plain=plain,
+                                     mark=mark)
+        else:
+            disp = torch.stack([
+                stereo_bm(lrect[b], rrect[b], st.matcher,
+                          roi1=matching_region(boxes[b]), roi2=None,
+                          plain=plain, mark=mark)
+                for b in range(len(lrect))])
+        filtered = None
+        if cfg.enable_post_filter:
+            rcfg = right_matcher_config(st.matcher)
+            rmark = lambda name: mark(f"right matcher ({name})")  # noqa: E731
+            if st.matcher.kind == "sgm":
+                disp_r = stereo_sgbm_batch(rrect, lrect, rcfg, plain=plain,
+                                           mark=rmark)
+            else:
+                disp_r = torch.stack([
+                    stereo_bm(r, lf, rcfg, plain=plain, mark=rmark)
+                    for r, lf in zip(rrect, lrect)])
+            filtered = torch.stack([
+                wls_filter(d, dr, lf, st.matcher, plain=plain)[0]
+                for d, dr, lf in zip(disp, disp_r, lrect)])
+            mark("WLS: confidence + FGS (frame by frame)")
+        return self._depth(disp, filt, boxes, rgbr, filtered, mark)
 
     def _upload(self, img) -> torch.Tensor:
         """One decoded image (numpy or tensor) onto the device, on the
@@ -337,12 +400,26 @@ class Engine:
         return outs
 
     def process_batch(self, lefts, rights) -> list:
-        """The frame program on B decoded pairs (multi-stream batching,
-        BASELINE.md); returns a list of B FrameResults."""
-        if self.cfg.batch <= 1:
+        """B decoded pairs (multi-stream batching, BASELINE.md) through the
+        batch program on the current stream, each eye's B images uploaded
+        as one pinned (B, H, W, 3) copy. Returns a list of B FrameResults.
+        The one program runs every batch: on the card it is ahead of
+        `dispatch_batch`'s B streams for both matchers (PERF.md), and its
+        frames are the same."""
+        B = self.cfg.batch
+        if B <= 1:
             raise ValueError("process_batch needs EngineConfig.batch > 1")
-        return [FrameResult(**_to_host(o))
-                for o in self.dispatch_batch(lefts, rights)]
+        if not len(lefts) == B == len(rights):
+            raise ValueError(f"process_batch: {len(lefts)} left and "
+                             f"{len(rights)} right images for batch {B}")
+
+        def stacked(imgs):
+            return self._upload(imgs if isinstance(imgs, torch.Tensor)
+                                else np.stack(imgs))
+
+        host = _to_host(self.batch_program(stacked(lefts), stacked(rights)))
+        return [FrameResult(**{k: v[b] for k, v in host.items()})
+                for b in range(B)]
 
     def step_batch(self) -> Optional[list]:
         """One batched iteration: grab cfg.batch pairs (one from each rig of

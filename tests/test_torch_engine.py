@@ -243,13 +243,18 @@ def test_engine_cuda_device_raises_without_cuda():
 
 
 def test_engine_refuses_unported_configs():
-    """The reference's "fused" and "unrolled" batch modes are not ported
-    (TPU lane-stacking); batch > 1 runs the pipelined mode and
-    show_disparity_value runs too (tests/test_torch_engine_extras.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The batch mode is not an option of the port's engine (the
+    reference's RTDM_BATCH_MODE): batch > 1 builds, and `process_batch`
+    runs the one batch program (its frames: tests/test_torch_batch_engine.py)."""
+    with pytest.raises(TypeError, match="batch_mode"):
         Engine(_cfg().replace(batch=2), device="cpu", batch_mode="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(_cfg().replace(batch=2), device="cpu", batch_mode="unrolled")
+    eng = Engine(_cfg().replace(batch=2), source=_source(), device="cpu")
+    calls = []
+    program = eng.batch_program
+    eng.batch_program = lambda *a, **k: calls.append(1) or program(*a, **k)
+    left, right = _source().render(0)[:2]
+    assert len(eng.process_batch([left, left], [right, right])) == 2
+    assert calls == [1]
 
 
 def test_port_imports_and_runs_with_jax_blocked():

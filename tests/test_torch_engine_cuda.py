@@ -1,10 +1,10 @@
-"""The pipelined batch mode on the card: four rigs, each frame on its own
-CUDA stream, equal to `process_pair` of each rig's pair on a single-stream
-engine, bit for bit (the float fields too: the same kernels in the same
-order). Both matchers; SGM-8 on its bidir route, so the cooperative
-kernels (K2 three times a frame, the vertical kernel twice) run on four
-streams at once. Needs the card: run with `python3 -m pytest --noconftest`
-there (no JAX)."""
+"""The pipelined batch mode on the card (`Engine.dispatch_batch`): four rigs,
+each frame on its own CUDA stream, equal to `process_pair` of each rig's
+pair on a single-stream engine, bit for bit (the float fields too: the same
+kernels in the same order). Both matchers; SGM-8 on its bidir route, so the
+cooperative kernels (K2 three times a frame, the vertical kernel twice) run
+on four streams at once. Needs the card: run with `python3 -m pytest
+--noconftest` there (no JAX)."""
 
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import pytest
 from rt_depth_map_tpu_torch import Engine
 from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
+from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
 from rt_depth_map_tpu_torch.sources import MultiStreamSource, SyntheticStereoSource
 from torch_helpers import cuda_or_skip
 
@@ -40,7 +41,8 @@ def test_four_streams_equal_process_pair(kind):
     for step in range(3):
         pairs = [rig.render(step)[:2] for rig in rigs]
         reset_launch_counts()
-        got = eng.process_batch([p[0] for p in pairs], [p[1] for p in pairs])
+        got = [FrameResult(**_to_host(o)) for o in
+               eng.dispatch_batch([p[0] for p in pairs], [p[1] for p in pairs])]
         launches = {w.__name__: w.launches for w, _, _ in KERNELS}
         assert launches["seg_min_propagate"] == 3 * B
         if kind == "sgm":

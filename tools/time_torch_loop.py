@@ -21,10 +21,16 @@ engines and synthetic frames, it reads:
 - the frame program's median host time through a synchronise on one
   resident pair, and its device time and device operations a frame
   (torch.profiler);
-- where the checkout has them, `run_preloaded` (6 resident pairs) and the
-  pipelined batch mode: `step_batch` of 4 rigs, one CUDA stream each
-  (frames/s over 20 steps after 8 that render the rigs' rings); null
-  where it does not.
+- where the checkout has them, `run_preloaded` (6 resident pairs) and
+  `step_batch` of 4 rigs (frames/s over 20 steps after 8 that render the
+  rigs' rings, REPS times; `step_batch_fps`, its first rep): the B-frame
+  program where the checkout has `batch_program`, else the pipelined mode
+  (one CUDA stream a rig); where the checkout has `batch_program`, also
+  the pipelined mode's steps through `dispatch_batch` (chip_smoke.py's
+  `_pipelined_step`); each also with a step's device time and device
+  operations on resident images (`step_batch`: {"step_batch" or
+  "pipelined": {"fps": [...], "device_ms", "device_ops"}}); null where
+  the checkout has no `step_batch`.
 
 One JSON line a process: the card's name and power limit, the checkout,
 the numbers.
@@ -77,21 +83,41 @@ def child(root: str) -> dict:
             pre.warmup()
             row["run_preloaded_fps"] = _fps(
                 pre, lambda n: pre.run_preloaded(frames=n, n_inputs=6), FRAMES)
+        row["step_batch"] = None
         if hasattr(eng, "step_batch"):
+            from rt_depth_map_tpu_torch.pipeline.engine import _to_host
             from rt_depth_map_tpu_torch.sources import MultiStreamSource
 
-            b = Engine(cs._config(kind, W, H).replace(batch=BATCH),
-                       rectification=cs._rectification(W, H),
-                       source=MultiStreamSource([cs._source(W, H, ring=8, seed=s)
-                                                 for s in range(BATCH)]),
-                       device="cuda")
-            for _ in range(8):
-                b.step_batch()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(STEPS):
-                b.step_batch()
-            row["step_batch_fps"] = BATCH * STEPS / (time.perf_counter() - t0)
+            pairs = [cs._source(W, H, seed=s).render(0)[:2] for s in range(BATCH)]
+            lefts = [p[0] for p in pairs]
+            rights = [p[1] for p in pairs]
+            modes = [("step_batch", lambda b: b.step_batch(),
+                      lambda b: b.process_batch(lefts, rights))]
+            if hasattr(eng, "batch_program"):
+                modes.append(("pipelined", cs._pipelined_step,
+                              lambda b: [_to_host(o) for o in
+                                         b.dispatch_batch(lefts, rights)]))
+            row["step_batch"] = {}
+            for mode, step, resident in modes:
+                b = Engine(cs._config(kind, W, H).replace(batch=BATCH),
+                           rectification=cs._rectification(W, H),
+                           source=MultiStreamSource([cs._source(W, H, ring=8, seed=s)
+                                                     for s in range(BATCH)]),
+                           device="cuda")
+                for _ in range(8):
+                    step(b)
+                fps = []
+                for _ in range(REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(STEPS):
+                        step(b)
+                    fps.append(BATCH * STEPS / (time.perf_counter() - t0))
+                dev_ms, ops = tt.device_profile(torch, lambda: resident(b))
+                row["step_batch"][mode] = {"fps": fps, "device_ms": dev_ms,
+                                           "device_ops": ops}
+                del b
+            row["step_batch_fps"] = row["step_batch"]["step_batch"]["fps"][0]
         out[name] = row
         del eng
         torch.cuda.empty_cache()

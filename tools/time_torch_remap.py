@@ -117,7 +117,7 @@ _QUAD = '''#pragma unroll
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int b = k * C + c;  // byte of the quad's 4 * C
-      w[b / 4] |= rm_sample<C>(pl.src, t[k], c) << (8 * (b % 4));
+      w[b / 4] |= rm_sample<C>(src, t[k], c) << (8 * (b % 4));
     }'''
 _QUAD_WORDS = '''#pragma unroll
   for (int k = 0; k < 4; ++k) {
@@ -127,7 +127,7 @@ _QUAD_WORDS = '''#pragma unroll
       uint32_t r[2][6];
 #pragma unroll
       for (int row = 0; row < 2; ++row) {
-        const uint8_t* p = pl.src + 3 * (row ? t[k].o10 : t[k].o00);
+        const uint8_t* p = src + 3 * (row ? t[k].o10 : t[k].o00);
         const uint32_t* a = (const uint32_t*)((uintptr_t)p & ~(uintptr_t)3);
         const unsigned sh = 8 * ((uintptr_t)p & 3);
         const uint32_t w0 = __ldg(a), w1 = __ldg(a + 1), w2 = __ldg(a + 2);
@@ -144,7 +144,7 @@ _QUAD_WORDS = '''#pragma unroll
                             512) >> 10);
     } else {
 #pragma unroll
-      for (int c = 0; c < C; ++c) px[c] = rm_sample<C>(pl.src, t[k], c);
+      for (int c = 0; c < C; ++c) px[c] = rm_sample<C>(src, t[k], c);
     }
 #pragma unroll
     for (int c = 0; c < C; ++c) {
@@ -157,9 +157,10 @@ _QUAD_WORDS = '''#pragma unroll
 ABLATIONS = [
     ("as is", [], True),
     ("no taps", [(_SAMPLE, _NO_TAPS)], False),
-    ("no stores", [("  uint8_t* dst = pl.dst + (size_t)p0 * C;\n",
+    ("no stores", [("  uint8_t* dst = pl.dst + ((BATCH ? dst_off : 0) + p0) * C;\n",
                     "  if (w[0] != 0x7f3e1d2cu) return;\n"
-                    "  uint8_t* dst = pl.dst + (size_t)p0 * C;\n")], False),
+                    "  uint8_t* dst = pl.dst + ((BATCH ? dst_off : 0) + p0) * C;\n")],
+     False),
     ("no table loads", [
         ("    const uint4 q0 = __ldg((const uint4*)(v.table + p0));\n"
          "    const uint4 q1 = __ldg((const uint4*)(v.table + p0 + 2));",
