@@ -73,9 +73,9 @@ the script exits non-zero:
      never), and every frame's
      disparity, boxes, mask and count must equal the plain frame program;
      then the frame program's median time and the pipelined frame rate;
-  5. stage profile of the SGM frame program (a CUDA event at each of the
-     frame program's stage marks) and the device's busy share
-     (torch.profiler);
+  5. stage profile of the SGM frame program (the device time launched
+     inside each of its `rtdm.stage.*` and `rtdm.match.*` spans, from a
+     torch.profiler trace) and the device's busy share (torch.profiler);
   6. engine, BM (D=128, block size 13, speckle filter on): the same checks
      on its own path, counted apart; its timing, stage profile and device
      time a frame (K8 itself is checked in phase 3 at 720p D=128 and D=192,
@@ -591,32 +591,42 @@ def _timed_run(phase, what, card, eng, left, right, w, h, d=D, num_paths=8,
 
 
 def _stage_profile(eng, left, right, frames=20):
-    """Median ms of each stage of the SGM frame program: a CUDA event at each
-    of `Engine.frame_program`'s stage marks (the events include host launch
-    gaps where the device waits)."""
-    import torch
+    """({stage: median device ms}, {matcher step: median device ms}) of the
+    frame program over `frames` frames under torch.profiler: a span's time
+    is the union of the device operations launched inside it, by
+    `benchmark/harness/spans.py`, and each row the median over the
+    `rtdm.stage.<stage>` (`rtdm.match.<step>`) spans of that name; launch
+    gaps, where the device waits for the host, belong to no stage."""
+    import os
+    import tempfile
 
-    rows = {}
+    from torch.profiler import ProfilerActivity, profile
 
-    def one():
-        marks = []
+    from benchmark.harness import spans, trace
 
-        def mark(name):
-            e = torch.cuda.Event(enable_timing=True)
-            e.record()
-            marks.append((name, e))
-
-        mark("start")
-        eng.frame_program(left, right, mark=mark)
+    eng.frame_program(left, right)
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            eng.frame_program(left, right)
         _sync()
-        for (_, a), (name, b) in zip(marks, marks[1:]):
-            rows.setdefault(name, []).append(a.elapsed_time(b))
-
-    one()
-    rows.clear()
-    for _ in range(frames):
-        one()
-    return {k: statistics.median(v) for k, v in rows.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    by_thread = spans.launched(events)
+    inside = spans.launched_inside(events, lambda n: n.startswith("rtdm.stage."))
+    print(f"stage profile: {len(inside)} of {len(trace.device_ops(events))} device "
+          f"operations launched inside a stage span", flush=True)
+    out = ({}, {})
+    for prefix, rows in zip(("rtdm.stage.", "rtdm.match."), out):
+        for name in dict.fromkeys(r[0] for r in sorted(spans.ranges(events, prefix),
+                                                        key=lambda r: r[2])):
+            each = [spans.busy_us(ops) * 1e-3
+                    for _, _, ops in spans.instances(events, name, by_thread)]
+            rows[name[len(prefix):]] = statistics.median(each)
+    return out
 
 
 def _device_busy(fn, frames=5):
@@ -2814,10 +2824,13 @@ def main() -> int:
 
     # -- 5. where the SGM frame's time goes ----------------------------------
     def profile(phase, eng, pair, frames):
-        prof = _stage_profile(eng, *pair, frames=frames)
-        for k, v in prof.items():
+        stages, steps = _stage_profile(eng, *pair, frames=frames)
+        for k, v in stages.items():
             print(f"phase {phase} stage {k}: {v:.4f} ms", flush=True)
-        print(f"phase {phase} stage sum: {sum(prof.values()):.3f} ms", flush=True)
+        for k, v in steps.items():
+            print(f"phase {phase} matcher step {k}: {v:.4f} ms", flush=True)
+        print(f"phase {phase} stage sum: {sum(stages.values()):.3f} ms of device time "
+              f"launched by the stages", flush=True)
         dev_ms, wall_ms, ops = _device_busy(lambda: eng.frame_program(*pair))
         print(f"phase {phase} torch.profiler: {dev_ms:.3f} ms of device time per "
               f"frame against {wall_ms:.3f} ms of wall time (busy "

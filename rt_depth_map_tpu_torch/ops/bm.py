@@ -8,11 +8,14 @@ uniqueness test, subpixel step and the per-frame ROI mask are elementwise
 torch, with the ROI scalars left on the device; the left-right check is one launch of
 K6's BM entry (`ops/cuda/lr_resolve.py`), and the speckle filter runs on K2,
 K7 with its size decision, and one apply launch (`ops/speckle.py`).
+While a profiler runs, each step is a span `rtdm.match.<step>`
+(`pipeline/stats.py` `span`): `prefilter`, `cost` (K8), `winner`,
+`lr_check`, `speckle`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -25,6 +28,7 @@ from rt_depth_map_tpu_torch.ops.cuda.bm_kernel import (
 from rt_depth_map_tpu_torch.ops.cuda.lr_resolve import lr_resolve_bm, lr_resolve_bm_plain
 from rt_depth_map_tpu_torch.ops.prefilter import xsobel_prefilter
 from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
+from rt_depth_map_tpu_torch.pipeline.stats import span
 
 DISP_SHIFT = 4
 DISP_SCALE = 1 << DISP_SHIFT
@@ -84,14 +88,11 @@ def winner_disparity(lp: torch.Tensor, wta, cfg: MatcherConfig,
 
 def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
               roi1: Optional[Tuple] = None, roi2: Optional[Tuple] = None,
-              plain: bool = False,
-              mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+              plain: bool = False) -> torch.Tensor:
     """int16 x16 disparity of (H, W) uint8 rectified gray planes.
 
     roi1/roi2: optional (x, y, w, h), ints or 0-d device tensors; an empty
-    ROI means the full frame. plain=True runs the kernels' plain versions;
-    mark(name), when given, is called after each stage."""
-    mark = mark or (lambda name: None)
+    ROI means the full frame. plain=True runs the kernels' plain versions."""
     H, W = left.shape
     D = cfg.num_disparities
     minD = cfg.min_disparity
@@ -101,40 +102,42 @@ def stereo_bm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     invalid = (minD - 1) * DISP_SCALE
     dev = left.device
 
-    lp = xsobel_prefilter(left, cfg.pre_filter_cap)
-    rp = xsobel_prefilter(right, cfg.pre_filter_cap)
-    wta = (bm_cost_wta_plain if plain else bm_cost_wta)(lp, rp, D, bs, minD)
-    ys = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
-    xs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
-    valid = border_valid(ys, xs, H, W, cfg)
+    with span("rtdm.match.prefilter"):
+        lp = xsobel_prefilter(left, cfg.pre_filter_cap)
+        rp = xsobel_prefilter(right, cfg.pre_filter_cap)
+    with span("rtdm.match.cost"):
+        wta = (bm_cost_wta_plain if plain else bm_cost_wta)(lp, rp, D, bs, minD)
+    with span("rtdm.match.winner"):
+        ys = torch.arange(H, dtype=torch.int32, device=dev)[:, None]
+        xs = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+        valid = border_valid(ys, xs, H, W, cfg)
 
-    if roi1 is not None or roi2 is not None:
-        def norm(r):
-            r = (0, 0, W, H) if r is None else r
-            # a Python int becomes a device fill, not an upload (which
-            # would make the host wait for the device)
-            r = [v.to(torch.int32) if isinstance(v, torch.Tensor)
-                 else torch.full((), v, dtype=torch.int32, device=dev) for v in r]
-            nonempty = r[2] * r[3] > 0
-            return [torch.where(nonempty, v, f) for v, f in zip(r, (0, 0, W, H))]
+        if roi1 is not None or roi2 is not None:
+            def norm(r):
+                r = (0, 0, W, H) if r is None else r
+                # a Python int becomes a device fill, not an upload (which
+                # would make the host wait for the device)
+                r = [v.to(torch.int32) if isinstance(v, torch.Tensor)
+                     else torch.full((), v, dtype=torch.int32, device=dev) for v in r]
+                nonempty = r[2] * r[3] > 0
+                return [torch.where(nonempty, v, f) for v, f in zip(r, (0, 0, W, H))]
 
-        r1x, r1y, r1w, r1h = norm(roi1)
-        r2x, r2y, r2w, r2h = norm(roi2)
-        # the unclamped maxD, as the reference
-        rxmin = torch.maximum(r1x, r2x + maxD) + w2
-        rxmax = torch.minimum(r1x + r1w, r2x + r2w) - w2
-        rymin = torch.maximum(r1y, r2y) + w2
-        rymax = torch.minimum(r1y + r1h, r2y + r2h) - w2
-        valid = valid & (xs >= rxmin) & (xs < rxmax) & (ys >= rymin) & (ys < rymax)
+            r1x, r1y, r1w, r1h = norm(roi1)
+            r2x, r2y, r2w, r2h = norm(roi2)
+            # the unclamped maxD, as the reference
+            rxmin = torch.maximum(r1x, r2x + maxD) + w2
+            rxmax = torch.minimum(r1x + r1w, r2x + r2w) - w2
+            rymin = torch.maximum(r1y, r2y) + w2
+            rymax = torch.minimum(r1y + r1h, r2y + r2h) - w2
+            valid = valid & (xs >= rxmin) & (xs < rxmax) & (ys >= rymin) & (ys < rymax)
 
-    disp, best_cost = winner_disparity(lp, wta, cfg, valid)
-    mark("BM prefilter, K8, texture, uniqueness, subpixel")
+        disp, best_cost = winner_disparity(lp, wta, cfg, valid)
 
     if cfg.disp12_max_diff >= 0:
-        disp = lr_check(disp, best_cost, D, cfg.disp12_max_diff, minD, plain=plain)
-    mark("LR check (K6)")
+        with span("rtdm.match.lr_check"):
+            disp = lr_check(disp, best_cost, D, cfg.disp12_max_diff, minD, plain=plain)
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
-        disp = filter_speckles(disp, invalid, cfg.speckle_window_size,
-                               cfg.speckle_range * DISP_SCALE, plain=plain)
-    mark("speckle (K2 + K7 + K2 + apply)")
+        with span("rtdm.match.speckle"):
+            disp = filter_speckles(disp, invalid, cfg.speckle_window_size,
+                                   cfg.speckle_range * DISP_SCALE, plain=plain)
     return disp

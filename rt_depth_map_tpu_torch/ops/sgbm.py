@@ -38,14 +38,14 @@ only the speckle filter runs frame by frame, as in the reference. Any
 other configuration runs `stereo_sgbm` over the frames, as the reference
 does.
 
-`stereo_sgbm`, `stereo_sgbm_batch` and `Engine.frame_program` take an
-optional `mark(name)` callback, called after each stage (the stage
-profile of `chip_smoke.py`).
+While a profiler runs, each step of the matcher is a span
+`rtdm.match.<step>` (`pipeline/stats.py` `span`): `preprocess`, `cost`,
+then `to_x_major`, `horiz`, `to_row_major` and `vert_wta` on the bidir
+route or `horiz_lr`, `horiz_rl`, `vert_down` and `final_wta` on the
+chained one, then `lr_check` and `speckle`.
 """
 
 from __future__ import annotations
-
-from typing import Callable, Optional
 
 import torch
 
@@ -91,28 +91,25 @@ from rt_depth_map_tpu_torch.ops.cuda.vol_transpose import (
     vol_transpose_plain,
 )
 from rt_depth_map_tpu_torch.ops.speckle import filter_speckles
+from rt_depth_map_tpu_torch.pipeline.stats import span
 
 DISP_SHIFT = 4
 DISP_SCALE = 1 << DISP_SHIFT
 
 
-def _no_mark(name: str) -> None:
-    pass
-
-
 def sgbm_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int,
                      block_size: int, pre_filter_cap: int = 0,
-                     plain: bool = False, mark: Callable[[str], None] = _no_mark,
-                     min_disp: int = 0):
+                     plain: bool = False, min_disp: int = 0):
     """(C, minX1, W1) of two (H, W) uint8 rectified gray planes
     (ops/sgbm.py `sgbm_cost_volume`): the elementwise preprocessing, then
     K3. C is (H, W1, D), int16 where it provably fits."""
-    lpl = plane_stack(left, pre_filter_cap)
-    rpl = plane_stack(right, pre_filter_cap)
-    mark("SGM preprocess: plane_stack x2")
+    with span("rtdm.match.preprocess"):
+        lpl = plane_stack(left, pre_filter_cap)
+        rpl = plane_stack(right, pre_filter_cap)
     cost = sgm_cost_volume_plain if plain else sgm_cost_volume
-    return cost(lpl, rpl, num_disp, block_size,
-                volume_dtype(block_size, pre_filter_cap), min_disp)
+    with span("rtdm.match.cost"):
+        return cost(lpl, rpl, num_disp, block_size,
+                    volume_dtype(block_size, pre_filter_cap), min_disp)
 
 
 # the reference's direction lists (ops/sgbm.py:234-235), a pixel (y, x)
@@ -174,33 +171,31 @@ def uses_bidir(num_paths: int, H: int, W: int, D: int, min_disp: int = 0) -> boo
 
 
 def aggregate_bidir(C: torch.Tensor, p1: int, p2: int, uniqueness_ratio: int,
-                    plain: bool = False, mark: Callable[[str], None] = _no_mark):
+                    plain: bool = False):
     """(best, minS, dval, uniq) of the 8 paths over the (H, W1, D) volume C,
     or the (B, H, W1, D) volumes of a batch, through the fused kernels:
     K12, K4, K12 on the (B * H, W1, D) rows (none of them mixes rows), then
     K5 or its batched entry."""
     *_, W1, D = C.shape
     batch = C.dim() == 4
-    Ct = swap_pixel_axes(C.view(-1, W1, D), plain)
-    mark("K12 cost volume to x-major")
-    Sh_t = (sgm_horiz_plain if plain else sgm_horiz)(Ct, p1, p2)
+    with span("rtdm.match.to_x_major"):
+        Ct = swap_pixel_axes(C.view(-1, W1, D), plain)
+    with span("rtdm.match.horiz"):
+        Sh_t = (sgm_horiz_plain if plain else sgm_horiz)(Ct, p1, p2)
     del Ct
-    mark("K4 horizontal paths")
-    Sh = swap_pixel_axes(Sh_t, plain).view(C.shape)
+    with span("rtdm.match.to_row_major"):
+        Sh = swap_pixel_axes(Sh_t, plain).view(C.shape)
     del Sh_t
-    mark("K12 horizontal sum to row-major")
     if batch:
         vert = sgm_vert_wta_batch_plain if plain else sgm_vert_wta_batch
     else:
         vert = sgm_vert_wta_plain if plain else sgm_vert_wta
-    out = vert(C, Sh, p1, p2, uniqueness_ratio)
-    mark("K5 vertical + diagonal paths, WTA" + (" (batch)" if batch else ""))
-    return out
+    with span("rtdm.match.vert_wta"):
+        return vert(C, Sh, p1, p2, uniqueness_ratio)
 
 
 def aggregate_chained(C: torch.Tensor, paths: int, p1: int, p2: int,
-                      uniqueness_ratio: int, plain: bool = False,
-                      mark: Callable[[str], None] = _no_mark):
+                      uniqueness_ratio: int, plain: bool = False):
     """(best, minS, dval, uniq) of `paths` (8, 5 or 4) paths over the
     (H, W1, D) volume C through the chained passes, one direction set each:
     K9a (once, or twice from 5 paths), K9c for 8 paths, K9d."""
@@ -208,29 +203,25 @@ def aggregate_chained(C: torch.Tensor, paths: int, p1: int, p2: int,
     final = sgm_final_wta_plain if plain else sgm_final_wta
     if C.dtype == torch.int16 and not partials_fit_int16(p1, p2):
         C = C.to(torch.int32)  # the partials would overflow int16
-    S = horiz(C, p1, p2)
-    mark(f"K9a left-to-right ({paths}-path)")
+    with span("rtdm.match.horiz_lr"):
+        S = horiz(C, p1, p2)
     if paths >= 5:
-        S = horiz(C, p1, p2, reverse=True, partial=S)
-        mark(f"K9a right-to-left + partial ({paths}-path)")
+        with span("rtdm.match.horiz_rl"):
+            S = horiz(C, p1, p2, reverse=True, partial=S)
     if paths == 8:
-        S = (sgm_vert_pass_plain if plain else sgm_vert_pass)(C, p1, p2,
-                                                              partial=S)
-        mark("K9c top-down paths + partial (8-path)")
-    out = final(C, S, p1, p2, uniqueness_ratio, reverse=paths == 8)
-    mark(f"K9d {'bottom-up' if paths == 8 else 'top-down'} paths + partial, "
-         f"WTA ({paths}-path)")
-    return out
+        with span("rtdm.match.vert_down"):
+            S = (sgm_vert_pass_plain if plain else sgm_vert_pass)(C, p1, p2,
+                                                                  partial=S)
+    with span("rtdm.match.final_wta"):
+        return final(C, S, p1, p2, uniqueness_ratio, reverse=paths == 8)
 
 
 def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
-                plain: bool = False,
-                mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+                plain: bool = False) -> torch.Tensor:
     """int16 x16 disparity map of (H, W) uint8 rectified gray planes,
     cv::StereoSGBM parity (MODE_HH for 8 paths, MODE_SGBM for 5).
     plain=True runs the kernels' plain versions (the reference for the
-    card's kernels); mark(name), when given, is called after each stage."""
-    mark = mark or _no_mark
+    card's kernels)."""
     H, W = left.shape
     check_config(cfg, W)
     D = cfg.num_disparities
@@ -239,22 +230,19 @@ def stereo_sgbm(left: torch.Tensor, right: torch.Tensor, cfg: MatcherConfig,
     p2 = max(cfg.p2, p1 + 1)
 
     C, minX1, _ = sgbm_cost_volume(left, right, D, cfg.block_size,
-                                   cfg.pre_filter_cap, plain=plain,
-                                   mark=mark, min_disp=minD)
-    mark("K3 cost volume")
+                                   cfg.pre_filter_cap, plain=plain, min_disp=minD)
     if uses_bidir(cfg.num_paths, H, W, D, minD):
         best, minS, dval, uniq = aggregate_bidir(C, p1, p2, cfg.uniqueness_ratio,
-                                                 plain, mark)
+                                                 plain)
     else:
         best, minS, dval, uniq = aggregate_chained(
-            C, path_count(cfg.num_paths), p1, p2, cfg.uniqueness_ratio, plain,
-            mark)
+            C, path_count(cfg.num_paths), p1, p2, cfg.uniqueness_ratio, plain)
     del C
-    return _finish(best, minS, dval, uniq, cfg, W, minX1, plain, mark)
+    return _finish(best, minS, dval, uniq, cfg, W, minX1, plain)
 
 
 def _finish(best, minS, dval, uniq, cfg: MatcherConfig, W: int, minX1: int,
-            plain: bool, mark: Callable[[str], None]) -> torch.Tensor:
+            plain: bool) -> torch.Tensor:
     """The int16 x16 disparity of one frame or a batch from the winner-take-
     all's (..., H, W1) outputs: the uniqueness test, the LR check on the
     (rows, W) rows, then the speckle filter frame by frame."""
@@ -262,23 +250,24 @@ def _finish(best, minS, dval, uniq, cfg: MatcherConfig, W: int, minX1: int,
     D = cfg.num_disparities
     minD = cfg.min_disparity
     invalid = (minD - 1) * DISP_SCALE
-    disp = torch.full((*lead, H, W), invalid, dtype=torch.int16,
-                      device=best.device)
-    if minD:
-        dval = dval + minD * DISP_SCALE
-    disp[..., minX1: minX1 + W1] = torch.where(uniq != 0, invalid, dval).to(torch.int16)
-    if cfg.disp12_max_diff >= 0:
-        disp = lr_check_sgbm(disp.view(-1, W), best.view(-1, W1),
-                             minS.view(-1, W1), minX1, W1, D,
-                             cfg.disp12_max_diff, minD,
-                             plain=plain).view(disp.shape)
-    mark("LR check (K6)")
+    with span("rtdm.match.lr_check"):
+        disp = torch.full((*lead, H, W), invalid, dtype=torch.int16,
+                          device=best.device)
+        if minD:
+            dval = dval + minD * DISP_SCALE
+        disp[..., minX1: minX1 + W1] = torch.where(uniq != 0, invalid,
+                                                   dval).to(torch.int16)
+        if cfg.disp12_max_diff >= 0:
+            disp = lr_check_sgbm(disp.view(-1, W), best.view(-1, W1),
+                                 minS.view(-1, W1), minX1, W1, D,
+                                 cfg.disp12_max_diff, minD,
+                                 plain=plain).view(disp.shape)
     if cfg.speckle_window_size > 0 and cfg.speckle_range >= 0:
-        frames = [filter_speckles(d, invalid, cfg.speckle_window_size,
-                                  cfg.speckle_range * DISP_SCALE, plain=plain)
-                  for d in disp.view(-1, H, W)]
-        disp = frames[0] if not lead else torch.stack(frames)
-    mark("speckle (K2 + K7 + K2 + apply)")
+        with span("rtdm.match.speckle"):
+            frames = [filter_speckles(d, invalid, cfg.speckle_window_size,
+                                      cfg.speckle_range * DISP_SCALE, plain=plain)
+                      for d in disp.view(-1, H, W)]
+            disp = frames[0] if not lead else torch.stack(frames)
     return disp
 
 
@@ -291,30 +280,28 @@ def uses_batch_route(cfg: MatcherConfig, H: int, W: int) -> bool:
 
 
 def stereo_sgbm_batch(lefts: torch.Tensor, rights: torch.Tensor,
-                      cfg: MatcherConfig, plain: bool = False,
-                      mark: Optional[Callable[[str], None]] = None) -> torch.Tensor:
+                      cfg: MatcherConfig, plain: bool = False) -> torch.Tensor:
     """(B, H, W) int16 x16 disparities of (B, H, W) uint8 rectified gray
     planes, frame b bit-identical to `stereo_sgbm(lefts[b], rights[b],
     cfg)`. On the batched route each stage is one launch for the B frames
     (module docstring); elsewhere `stereo_sgbm` runs frame by frame."""
-    mark = mark or _no_mark
     B, H, W = lefts.shape
     if not uses_batch_route(cfg, H, W):
-        return torch.stack([stereo_sgbm(lf, rf, cfg, plain=plain, mark=mark)
+        return torch.stack([stereo_sgbm(lf, rf, cfg, plain=plain)
                             for lf, rf in zip(lefts, rights)])
     check_config(cfg, W)
     D = cfg.num_disparities
     p1 = cfg.p1
     p2 = max(cfg.p2, p1 + 1)
-    lpl = plane_stack(lefts, cfg.pre_filter_cap)
-    rpl = plane_stack(rights, cfg.pre_filter_cap)
-    mark("SGM preprocess: plane_stack x2 (batch)")
+    with span("rtdm.match.preprocess"):
+        lpl = plane_stack(lefts, cfg.pre_filter_cap)
+        rpl = plane_stack(rights, cfg.pre_filter_cap)
     cost = sgm_cost_volume_batch_plain if plain else sgm_cost_volume_batch
-    C, minX1, _ = cost(lpl, rpl, D, cfg.block_size,
-                       volume_dtype(cfg.block_size, cfg.pre_filter_cap))
+    with span("rtdm.match.cost"):
+        C, minX1, _ = cost(lpl, rpl, D, cfg.block_size,
+                           volume_dtype(cfg.block_size, cfg.pre_filter_cap))
     del lpl, rpl
-    mark("K3 cost volume (batch)")
     best, minS, dval, uniq = aggregate_bidir(C, p1, p2, cfg.uniqueness_ratio,
-                                             plain, mark)
+                                             plain)
     del C
-    return _finish(best, minS, dval, uniq, cfg, W, minX1, plain, mark)
+    return _finish(best, minS, dval, uniq, cfg, W, minX1, plain)

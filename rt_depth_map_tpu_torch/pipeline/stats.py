@@ -1,17 +1,37 @@
-"""Per-stage execution-time statistics.
+"""Per-stage execution-time statistics and the port's trace spans.
 
 Re-creates the reference's macro timing subsystem (include/estimator.h:46-80
 + estimator.cpp:265-292): each pipeline call site accumulates a running mean
 of its execution time in call order; a report prints per-stage means, the
 iteration count, and the overall per-frame sum. The reference prints this on
 SIGINT; the Engine wires the same signal plus atexit.
+
+Spans: while a `torch.profiler` session runs on the calling thread,
+`span(name)` (and `measure` given a span name) opens a `record_function`
+range, which the profiler stamps on the clock of its device trace. With no
+session running a span is one check of the profiler's state and a shared
+null context: a `record_function` range costs microseconds a call even
+when nothing records it. Span names are stable (`rtdm.<layer>.<step>`,
+listed in PERF.md); the means table is unchanged by them.
 """
 
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import torch
+from torch.autograd.profiler import record_function
+
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `record_function` range `name` while a profiler runs, else the
+    shared null context."""
+    return record_function(name) if _profiling() else _NO_SPAN
 
 
 class _StageAcc:
@@ -57,22 +77,18 @@ class ExecTimeStats:
         self.iterations += 1
 
     @contextlib.contextmanager
-    def measure(self, name: str):
-        if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            acc = self._stages.get(name)
-            if acc is None:
-                acc = _StageAcc(name)
-                self._stages[name] = acc
-                self._order.append(name)
-            acc.total += dt
-            acc.count += 1
+    def measure(self, name: str, span_name: Optional[str] = None):
+        """Adds the block's time to the running mean `name`; with a
+        span_name, the block is also that span."""
+        with span(span_name) if span_name else _NO_SPAN:
+            if not self.enabled:
+                yield
+                return
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self.add(name, time.perf_counter() - t0)
 
     def add(self, name: str, seconds: float) -> None:
         acc = self._stages.get(name)

@@ -26,6 +26,7 @@ from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
 from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
 from rt_depth_map_tpu_torch.sources import MultiStreamSource, SyntheticStereoSource
 from rt_depth_map_tpu_torch.sources.synthetic import SyntheticObject
+from torch_helpers import profiled_spans
 
 W, H = 192, 64
 EXACT = ("disparity", "boxes", "mask", "count", "rgb_rect")
@@ -101,12 +102,11 @@ def _port_batch(cfg, lefts, rights, seed, rect=None):
     eng = Engine(cfg, rectification=rect, source=_source(SyntheticStereoSource,
                                                          seed, rect),
                  device="cpu")
-    marks = []
     reset_launch_counts()
-    out = eng.batch_program(torch.from_numpy(lefts), torch.from_numpy(rights),
-                            mark=marks.append)
+    out, spans = profiled_spans(lambda: eng.batch_program(torch.from_numpy(lefts),
+                                                          torch.from_numpy(rights)))
     assert all(w.launches == 0 for w, _, _ in KERNELS)  # the plain versions
-    return _to_host(out), marks, eng
+    return _to_host(out), [e.name for e in spans], eng
 
 
 @pytest.mark.parametrize("kind", ["sgm", "bm"])
@@ -121,9 +121,9 @@ def test_batch_program_matches_jax(kind):
         _assert_frame({k: v[b] for k, v in got.items()}, jbatch,
                       f"{kind} frame {b} vs _step_batch", b)
     assert got["boxes"][:, :, 4].any()
-    assert "remap K1 (both views, batch)" in marks  # the batched stages, named
+    assert "rtdm.stage.rectify" in marks  # the batched stages, named
     if kind == "sgm":
-        assert "K5 vertical + diagonal paths, WTA (batch)" in marks
+        assert "rtdm.match.vert_wta" in marks
 
 
 def test_batch_program_out_of_image_maps():
@@ -149,7 +149,7 @@ def test_batch_program_post_filter_matches_jax():
     for b in range(B):
         _assert_frame({k: v[b] for k, v in got.items()}, jbatch,
                       f"post filter frame {b}", b)
-    assert any(m.startswith("right matcher (") for m in marks)
+    assert "rtdm.stage.match_right" in marks and "rtdm.stage.wls" in marks
 
 
 def test_process_and_step_batch_match_process_pair():

@@ -13,6 +13,17 @@ def cuda_or_skip() -> torch.device:
     return torch.device("cuda")
 
 
+def profiled_spans(fn):
+    """(fn(), the `rtdm.` ranges the port opened while fn ran under a CPU
+    torch.profiler: its FunctionEvents in the order they start)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sorted((e for e in prof.events() if e.name.startswith("rtdm.")),
+                       key=lambda e: e.time_range.start)
+
+
 def t(a, device="cpu"):
     """numpy -> torch tensor (a private copy) on `device`."""
     return torch.from_numpy(np.array(a)).to(device)
