@@ -65,12 +65,13 @@ the script exits non-zero:
      cv2.StereoSGBM parity: MODE_SGBM, the causal 4 paths and MODE_HH on
      both of its routes);
   4. engine, SGM: Engine.run on a synthetic 1280x720 stream through a
-     non-identity rectification with the launch counts set to 0 just
-     before and every plain version made to raise on a CUDA tensor; every
-     kernel of the path must have launched (K12 twice a frame, K4 and K5
-     once; on every engine phase the LR check's entry, `speckle_decision`
-     and `speckle_apply` once a frame, K6's and K7's general entries
-     never), and every frame's
+     non-identity rectification with every plain version made to raise on
+     a CUDA tensor; the run replays the program it captured (its launch
+     counts, the capture's, equal one eager frame's); on an eager frame
+     every kernel of the path must have launched (K12 twice a frame, K4
+     and K5 once; on every engine phase the LR check's entry,
+     `speckle_decision` and `speckle_apply` once a frame, K6's and K7's
+     general entries never), and every frame's
      disparity, boxes, mask and count must equal the plain frame program;
      then the frame program's median time and the pipelined frame rate;
   5. stage profile of the SGM frame program (the device time launched
@@ -501,13 +502,17 @@ def _snake(h, w, arms):
 
 def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
                   frames=ENGINE_FRAMES, absent=(), post_filter=False):
-    """Engine.run with the counts set to 0 just before and every plain
-    version guarded against CUDA tensors (`_no_plain_on_card`); every kernel
-    of the path launched, none of `absent` or of K6's and K7's general
-    entries, the LR check's and the speckle filter's entries once a frame,
-    and every frame equal to the plain frame program (with the post filter,
-    its filtered disparity within 1 on WLS_WITHIN_1 of the pixels and 16
-    everywhere). Returns the engine and the launch counts of the run."""
+    """Engine.run with every plain version guarded against CUDA tensors
+    (`_no_plain_on_card`): after `warmup`'s eager frame the run's first
+    frame is captured into CUDA graphs and the others replay them, so the
+    wrappers count the capture's launches, which must equal one eager
+    frame program's (a replay calls no wrapper). On that eager frame: every
+    kernel of the path launched, none of `absent` or of K6's and K7's
+    general entries, the LR check's and the speckle filter's entries once.
+    Every frame of the run must equal the plain frame program (with the
+    post filter, its filtered disparity within 1 on WLS_WITHIN_1 of the
+    pixels and 16 everywhere). Returns the engine and the launch counts of
+    one eager frame."""
     import torch
 
     from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
@@ -517,25 +522,38 @@ def _check_engine(phase, kind, w, h, path, d=D, num_paths=8,
             f"{w}x{h} D={eng.num_disparities}{' + WLS post filter' if post_filter else ''}")
     eng.warmup()
     results = {}
+    ref_src = _source(w, h)
+    lf, rf, _, _ = ref_src.render(0)
     with _no_plain_on_card() as guarded:
         reset_launch_counts()
         eng.run(frames=frames, on_frame=lambda i, r: results.__setitem__(i, r),
                 print_stats_on_sigint=False)
+        captured = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
+        reset_launch_counts()
+        eng.frame_program(torch.from_numpy(lf).to(DEV), torch.from_numpy(rf).to(DEV))
         launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
-    print(f"{what}: {len(results)} frames, launches {launches}; no CUDA tensor "
-          f"reached any of {guarded} plain versions", flush=True)
+    (prog,) = eng._graphs._by_shape.values()
+    print(f"{what}: {len(results)} frames, {prog.calls - 1} of them replayed from "
+          f"{len(prog.segments or ())} captured graphs; launches of an eager frame "
+          f"{launches}; no CUDA tensor reached any of {guarded} plain versions",
+          flush=True)
     if len(results) != frames:
         raise AssertionError(f"{what} returned {len(results)} frames")
+    if prog.segments is None or prog.calls != frames + 1:
+        raise AssertionError(f"{what}: the run did not replay its captured program "
+                             f"({prog.calls} calls)")
+    if captured != launches:
+        raise AssertionError(f"{what}: the capture launched {captured}, an eager "
+                             f"frame {launches}")
     _require_launched(launches, path, what, absent + GENERAL)
     lr = "lr_resolve_bm" if "bm_cost_wta" in path else "lr_resolve_sgbm"
     per_frame = {lr: 1, **LR_SPECKLE_PER_FRAME}
-    got = {k: launches[k] / frames for k in per_frame}
+    got = {k: launches[k] for k in per_frame}
     if got != per_frame:
         raise AssertionError(f"{what}: launches a frame {got}, expected {per_frame}")
     print(f"{what}: launches a frame of the LR check and speckle entries {got}",
           flush=True)
 
-    ref_src = _source(w, h)
     for i in sorted(results):
         res = results[i]
         lf, rf, _, _ = ref_src.render(i)
@@ -2814,7 +2832,7 @@ def main() -> int:
     sgm_eng, sgm_launches = _check_engine(4, "sgm", W, H, SGM_PATH)
     # the TPU's two transposes stay around K4, which is one call a frame
     per_frame = {"vol_transpose": 2, "sgm_horiz": 1, "sgm_vert_wta": 1}
-    if any(sgm_launches[k] != n * ENGINE_FRAMES for k, n in per_frame.items()):
+    if any(sgm_launches[k] != n for k, n in per_frame.items()):
         raise AssertionError(f"phase 4: launches {sgm_launches}, expected per "
                              f"frame {per_frame}")
     pair = (left, right)
@@ -2882,7 +2900,7 @@ def main() -> int:
     for kind, path in (("sgm", SGM_PATH + POST), ("bm", BM_PATH + POST)):
         p_eng, p_launches = _check_engine(10, kind, W, H, path, frames=POST_FRAMES,
                                           post_filter=True)
-        got = {k: p_launches[k] / POST_FRAMES for k in POST_PER_FRAME[kind]}
+        got = {k: p_launches[k] for k in POST_PER_FRAME[kind]}
         if got != POST_PER_FRAME[kind]:
             raise AssertionError(f"phase 10 {kind} + WLS: launches a frame {got}, "
                                  f"expected {POST_PER_FRAME[kind]}")

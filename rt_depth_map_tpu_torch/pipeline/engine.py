@@ -39,8 +39,15 @@ its frames equals `frame_program` on its pair. `dispatch_batch` runs the
 reference's pipelined mode instead: B independent frame programs, each on
 a CUDA stream of its own, returned without waiting.
 
-PyTorch runs eagerly, so there is no compile step; the CUDA kernels build at
-their first launch.
+On the card the single-frame program runs as captured CUDA graphs
+(`pipeline/graphs.py`): `run`, `run_preloaded` and `process_pair` (`step`,
+`warmup`, the CLI) upload each pair into the input buffers of its shape's
+capture, whose graphs replay; the first frame of a shape runs eagerly and
+the second is captured, cut at the program's spans. The setters drop the
+captures: the next frame runs eagerly and the one after captures again.
+`frame_program` itself, `batch_program` (`process_batch`, `step_batch`),
+`dispatch_batch` and the CPU path run eagerly. There is no compile step;
+the CUDA kernels build at their first launch.
 """
 
 from __future__ import annotations
@@ -75,6 +82,7 @@ from rt_depth_map_tpu_torch.ops.reproject import (
 from rt_depth_map_tpu_torch.ops.sgbm import check_config as check_sgm_config
 from rt_depth_map_tpu_torch.ops.sgbm import stereo_sgbm, stereo_sgbm_batch
 from rt_depth_map_tpu_torch.ops.wls import right_matcher_config, wls_filter
+from rt_depth_map_tpu_torch.pipeline.graphs import FrameGraphs
 from rt_depth_map_tpu_torch.pipeline.stats import ExecTimeStats, span
 from rt_depth_map_tpu_torch.sources import make_source
 
@@ -208,6 +216,8 @@ class Engine:
         # dispatch_batch's streams, one a rig, made once
         self._streams = ([torch.cuda.Stream(device) for _ in range(cfg.batch)]
                          if device.type == "cuda" and cfg.batch > 1 else None)
+        # the single-frame program's captures on the card, one an input shape
+        self._graphs = FrameGraphs(device) if device.type == "cuda" else None
 
     # -- device program ----------------------------------------------------
     def _depth(self, disp, filt, boxes, rgbr, filtered) -> dict:
@@ -327,40 +337,67 @@ class Engine:
                     for d, dr, lf in zip(disp, disp_r, lrect)])
         return self._depth(disp, filt, boxes, rgbr, filtered)
 
-    def _upload(self, img) -> torch.Tensor:
+    def _upload(self, img, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decoded image (numpy or tensor) onto the device, on the
-        current stream. On the card the host copies it into pinned memory
-        and does not wait for the device: a copy from pageable memory would
-        wait for every frame queued before it."""
+        current stream, into `out` where given. On the card the host copies
+        it into pinned memory and does not wait for the device: a copy from
+        pageable memory would wait for every frame queued before it."""
         with span("rtdm.engine.upload"):
             t = img if isinstance(img, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(img))
             if self.device.type == "cuda" and t.device.type == "cpu":
                 t = t.pin_memory()
+            if out is not None:
+                return out.copy_(t, non_blocking=True)
             return t.to(self.device, non_blocking=True)
 
     def _dispatch(self, left: np.ndarray, right: np.ndarray) -> dict:
-        """H2D + the frame program for one decoded pair (device outputs)."""
-        return self.frame_program(self._upload(left), self._upload(right))
+        """H2D + the frame program for one decoded pair (device outputs).
+        On the card the pair goes into the input buffers of its shape's
+        captured program, which replays."""
+        if self._graphs is None:
+            return self.frame_program(self._upload(left), self._upload(right))
+        prog = self._graphs.get(left.shape, right.shape)
+        self._upload(left, prog.left)
+        self._upload(right, prog.right)
+        return prog(self.frame_program)
+
+    def _dispatch_resident(self, left: torch.Tensor, right: torch.Tensor) -> dict:
+        """The frame program for a pair already on the device; on the card
+        copied into the input buffers of its shape's captured program."""
+        if self._graphs is None:
+            return self.frame_program(left, right)
+        prog = self._graphs.get(left.shape, right.shape)
+        prog.left.copy_(left)
+        prog.right.copy_(right)
+        return prog(self.frame_program)
 
     # -- run-time thresholds -------------------------------------------------
     def set_hsv_thresholds(self, low, high) -> None:
         """Runtime HSV threshold adjustment (the reference's -a trackbar UI,
         estimator.cpp:294-304), for the next frame, without a rebuild. New
         device tensors go into the state: a frame still in flight keeps
-        reading the ones it was given."""
+        reading the ones it was given. The captured programs read the old
+        ones, and are dropped."""
         self.hsv_low = np.asarray(low, np.uint8)
         self.hsv_high = np.asarray(high, np.uint8)
         self.state = dataclasses.replace(
             self.state,
             hsv_low=torch.tensor(self.hsv_low, device=self.device),
             hsv_high=torch.tensor(self.hsv_high, device=self.device))
+        self._drop_captures()
 
     def set_min_object_size(self, min_size: int) -> None:
-        """The minimum box area of the detection, for the next frame."""
+        """The minimum box area of the detection, for the next frame (a
+        host number that the captured programs hold: they are dropped)."""
         self.min_object_size = int(min_size)
         self.state = dataclasses.replace(self.state,
                                          min_object_size=self.min_object_size)
+        self._drop_captures()
+
+    def _drop_captures(self) -> None:
+        if self._graphs is not None:
+            self._graphs.clear()
 
     # -- the pipelined multi-stream mode ------------------------------------
     def dispatch_batch(self, lefts, rights) -> list:
@@ -376,7 +413,8 @@ class Engine:
                              f"{len(rights)} right images for batch {B}")
         with span("rtdm.engine.dispatch"):
             if self._streams is None:
-                return [self._dispatch(l, r) for l, r in zip(lefts, rights)]
+                return [self.frame_program(self._upload(l), self._upload(r))
+                        for l, r in zip(lefts, rights)]
             main = torch.cuda.current_stream(self.device)
             st = self.state
             outs = []
@@ -682,7 +720,7 @@ class Engine:
             st.start_iteration()
             left, right = pairs[i % len(pairs)]
             with st.measure("dispatch", "rtdm.engine.dispatch"):
-                pending.append(self.frame_program(left, right))
+                pending.append(self._dispatch_resident(left, right))
             self._frames_done += 1
             while len(pending) >= max(1, pipeline_depth):
                 out = pending.popleft()

@@ -13,11 +13,18 @@ session running a span is one check of the profiler's state and a shared
 null context: a `record_function` range costs microseconds a call even
 when nothing records it. Span names are stable (`rtdm.<layer>.<step>`,
 listed in PERF.md); the means table is unchanged by them.
+
+While a thread captures the frame program into CUDA graphs
+(`pipeline/graphs.py`), `cutting(cutter)` makes each of that thread's
+spans a cut point instead: `cutter.enter(name)` and `cutter.exit(name)` end
+the open graph there, so each graph's work lies inside one stack of spans,
+which the replay opens again around it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -28,10 +35,53 @@ _profiling = torch._C._autograd._profiler_enabled
 _NO_SPAN = contextlib.nullcontext()
 
 
+class _Local(threading.local):
+    #: the calling thread's capture cutter, None while it captures nothing
+    cutter = None
+
+
+_local = _Local()
+
+
+class _Cut:
+    """A span during a capture: the cutter's cut points at its ends (none
+    where the block raises: the capture is then abandoned)."""
+
+    __slots__ = ("cutter", "name")
+
+    def __init__(self, cutter, name: str):
+        self.cutter, self.name = cutter, name
+
+    def __enter__(self):
+        self.cutter.enter(self.name)
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is None:
+            self.cutter.exit(self.name)
+        return False
+
+
 def span(name: str):
     """A `record_function` range `name` while a profiler runs, else the
-    shared null context."""
+    shared null context; while the thread captures, a cut point."""
+    cutter = _local.cutter
+    if cutter is not None:
+        return _Cut(cutter, name)
     return record_function(name) if _profiling() else _NO_SPAN
+
+
+@contextlib.contextmanager
+def cutting(cutter):
+    """Inside, the calling thread's spans are `cutter`'s cut points (an
+    object with `enter(name)` and `exit(name)`); other threads' spans are
+    unchanged."""
+    if _local.cutter is not None:
+        raise RuntimeError("cutting: this thread is already capturing")
+    _local.cutter = cutter
+    try:
+        yield cutter
+    finally:
+        _local.cutter = None
 
 
 class _StageAcc:

@@ -3,7 +3,11 @@ each frame on its own CUDA stream, equal to `process_pair` of each rig's
 pair on a single-stream engine, bit for bit (the float fields too: the same
 kernels in the same order). Both matchers; SGM-8 on its bidir route, so the
 cooperative kernels (K2 three times a frame, the vertical kernel twice) run
-on four streams at once. Needs the card: run with `python3 -m pytest
+on four streams at once. `dispatch_batch` runs eagerly and `process_pair`
+replays its captured graphs from the second frame on, so this is also a
+check of the replay against eager launches, the setters' new capture
+included; the launches are counted on `dispatch_batch`, the eager path
+(a replay calls no wrapper). Needs the card: run with `python3 -m pytest
 --noconftest` there (no JAX)."""
 
 import numpy as np
