@@ -49,12 +49,24 @@ captures: the next frame runs eagerly and the one after captures again.
 `dispatch_batch` and the CPU path run eagerly. There is no compile step;
 the CUDA kernels build at their first launch.
 
+A single frame is retired by its own event on the card (`run` with a
+consumer, `process_pair`): right behind its program, inside the dispatch
+and before the next frame's upload, each output field is copied without
+waiting into pinned host memory of the frame's own (`_PinnedFrame`), from
+the capture's outputs where it replayed, and an event is recorded. The
+frame's FrameResult waits for that event alone, so the card runs the next
+frame while the host hands this one over; its images stay in that pinned
+memory until the FrameResult is dropped. `run` without a consumer reads
+one small field every few frames as backpressure; the batch paths and the
+CPU copy to the host with a synchronise (`_to_host`).
+
 K2's sweeps are counted (`SweepCounter`): each capture fills its own
-counter, the eager single-frame and batch programs the engine's. While a
-profiler runs, the callers that read a whole result back (`run` with a
-consumer, `process_pair`, `process_batch`) put the sweeps of the program
-dispatched last, which their synchronise waited for, into the trace as
-`rtdm.count.cc_sweeps.<n>` (`stats.count`), once a program run.
+counter in device memory, the eager single-frame and batch programs the
+engine's. While a profiler runs, the callers that read a whole result
+back put them into the trace as `rtdm.count.cc_sweeps.<n>`
+(`stats.count`), once a program run: on the card a single frame's own,
+copied out with its fields; `process_batch`, and the CPU, those of the
+program dispatched last, which their synchronise waited for.
 """
 
 from __future__ import annotations
@@ -150,6 +162,43 @@ def _default_q(width: int, height: int) -> np.ndarray:
 
 def _to_host(out: dict) -> dict:
     return {k: v.cpu().numpy() for k, v in out.items() if v is not None}
+
+
+#: fields of fewer bytes than this (the per-box arrays) are copied out of
+#: their pinned memory when the frame retires and it returns to the cache:
+#: a consumer may keep them for every frame, and each block it kept would
+#: take a page-locked allocation of its own. The images are handed over in it.
+_COPY_OUT_BYTES = 1 << 16
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """`t` copied without waiting, on the current stream, into new pinned
+    host memory (PyTorch's caching host allocator)."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
+
+
+class _PinnedFrame:
+    """One frame's outputs on their way to the host, on the card: each field
+    and the words of K2's sweep counter copied into pinned memory of the
+    frame's own, then an event on `stream`. The memory returns to the
+    allocator's cache only when the FrameResult that holds it is dropped,
+    so no later frame writes it."""
+
+    def __init__(self, out: dict, sweeps: SweepCounter, stream):
+        self.host = {k: _pinned_copy(v) for k, v in out.items() if v is not None}
+        self.sweeps = _pinned_copy(sweeps.words[:sweeps.calls])
+        self.done = torch.cuda.Event()
+        self.done.record(stream)
+
+    def wait(self) -> dict:
+        """The fields as numpy arrays, once the copies are done."""
+        self.done.synchronize()
+        return {k: v.numpy() if v.nbytes >= _COPY_OUT_BYTES else v.numpy().copy()
+                for k, v in self.host.items()}
+
+    def sweep_count(self) -> int:
+        """K2's sweeps of this frame's program, summed (after `wait`)."""
+        return int(self.sweeps.sum())
 
 
 class Engine:
@@ -385,7 +434,9 @@ class Engine:
         prog.left.copy_(left)
         prog.right.copy_(right)
         self._counted = prog.sweeps
-        return prog(self.frame_program)
+        # a copy of its own: the loop holds the outputs on the device
+        return {k: None if v is None else v.clone()
+                for k, v in prog(self.frame_program).items()}
 
     def _eager(self, program: Callable, left, right) -> dict:
         """`program(left, right)`, its K2 sweeps counted by the engine."""
@@ -398,6 +449,31 @@ class Engine:
         dispatched last: its K2 sweeps, `rtdm.count.cc_sweeps.<n>`."""
         if self._counted is not None:
             count("cc_sweeps", self._counted.take)
+
+    def _send(self, out: dict):
+        """The outputs of the program just dispatched on their way to the
+        host, inside the dispatch: on the card its `_PinnedFrame`, enqueued
+        right behind the program (span `rtdm.engine.d2h_async`); on the CPU
+        `out` itself."""
+        if self.device.type != "cuda":
+            return out
+        with span("rtdm.engine.d2h_async"):
+            return _PinnedFrame(out, self._counted, torch.cuda.current_stream(self.device))
+
+    def _receive(self, sent, measure) -> FrameResult:
+        """The FrameResult of what `_send` returned. Waits inside `measure`
+        (the caller's `rtdm.engine.d2h` span): on the card for the frame's
+        own copies, on the CPU in `_to_host`. Then, under a profiler, K2's
+        sweeps: on the card the frame's own, on the CPU those of the
+        program dispatched last."""
+        pinned = isinstance(sent, _PinnedFrame)
+        with measure:
+            host = sent.wait() if pinned else _to_host(sent)
+        if pinned:
+            count("cc_sweeps", sent.sweep_count)
+        else:
+            self._count_sweeps()
+        return FrameResult(**host)
 
     # -- run-time thresholds -------------------------------------------------
     def set_hsv_thresholds(self, low, high) -> None:
@@ -533,11 +609,8 @@ class Engine:
     def process_pair(self, left_rgb: np.ndarray, right_rgb: np.ndarray) -> FrameResult:
         """Run the frame program on one decoded RGB pair."""
         with span("rtdm.engine.dispatch"):
-            out = self._dispatch(left_rgb, right_rgb)
-        with span("rtdm.engine.d2h"):
-            host = _to_host(out)
-        self._count_sweeps()
-        return FrameResult(**host)
+            sent = self._send(self._dispatch(left_rgb, right_rgb))
+        return self._receive(sent, span("rtdm.engine.d2h"))
 
     def step(self) -> Optional[FrameResult]:
         """One iteration of the frame loop (estimator.cpp:18-82)."""
@@ -589,11 +662,15 @@ class Engine:
         """Blocking frame loop; frames=None runs until SIGINT. Returns the
         number of loop iterations.
 
-        Up to `pipeline_depth` frames are in flight: results are pulled to
-        the host only for a consumer (`on_frame`); otherwise one small field
-        is read every few frames as backpressure. prefetch=True moves
-        grab+decode to a background thread with a small queue, so camera and
-        decoder latency overlap the device."""
+        Up to `pipeline_depth` frames are in flight: frame i is handed to
+        the consumer (`on_frame`) after frame i + depth - 1 is dispatched and
+        before frame i + depth is. On the card each frame's outputs are
+        copied into pinned host memory of its own right behind its program,
+        and retiring it waits for those copies alone, so the card runs the
+        frames dispatched after it while the consumer runs. Without a
+        consumer one small field is read every few frames as backpressure.
+        prefetch=True moves grab+decode to a background thread with a small
+        queue, so camera and decoder latency overlap the device."""
         stop = {"flag": False}
 
         def handler(signum, frame):
@@ -609,7 +686,7 @@ class Engine:
         from collections import deque
 
         depth = max(1, pipeline_depth)
-        pending = deque()  # (index, device output dict)
+        pending = deque()  # (index, device outputs, or with a consumer `_send`'s)
         sync_every = 8
         st = self.stats
         st.mark_overlapped("d2h")
@@ -617,10 +694,8 @@ class Engine:
         def retire(idx, out):
             # no span encloses the consumer: it may start or stop a profiler
             if on_frame is not None:
-                with st.measure("d2h", "rtdm.engine.d2h"):
-                    host = _to_host(out)
-                self._count_sweeps()
-                if on_frame(idx, FrameResult(**host)) is False:
+                res = self._receive(out, st.measure("d2h", "rtdm.engine.d2h"))
+                if on_frame(idx, res) is False:
                     stop["flag"] = True  # consumer requested stop
             elif idx % sync_every == 0:
                 with st.measure("d2h", "rtdm.engine.d2h"):
@@ -693,7 +768,8 @@ class Engine:
                 pair = next_pair()
                 if pair is not None:
                     with st.measure("dispatch", "rtdm.engine.dispatch"):
-                        pending.append((i, self._dispatch(*pair)))
+                        out = self._dispatch(*pair)
+                        pending.append((i, out if on_frame is None else self._send(out)))
                     self._frames_done += 1
                 while len(pending) >= depth:
                     retire(*pending.popleft())

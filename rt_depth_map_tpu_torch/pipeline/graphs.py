@@ -6,9 +6,11 @@ capture per input shape (`FrameGraphs`). The first frame of a shape runs
 eagerly (the kernels load and set their attributes, the allocator warms),
 the second is captured and replayed, and every later frame replays. The
 inputs are two static (H, W, 3) uint8 device buffers that the engine's
-upload writes into; right after the replay, on the same stream, each
-output field is copied out of the graphs' memory pool, so the next replay
-cannot overwrite a frame that the caller still holds.
+upload writes into. A replay returns the capture's own output tensors,
+which the next replay rewrites: a caller that keeps a frame copies them
+out on the same stream before it enqueues the next one (the engine into
+pinned host memory of the frame's own, `Engine._send`; `run_preloaded`
+into device tensors).
 
 The capture is cut wherever one of the program's `rtdm.` spans opens or
 closes (`pipeline/stats.py` `cutting`); a cut where the open graph holds no
@@ -19,9 +21,11 @@ the replay opens the same nested ranges around each graph's launch
 same ranges as when the program runs eagerly. With no profiler the replay
 is a plain loop of launches.
 
-Each capture owns a `SweepCounter` (`ops/cuda/cc_sweep.py`), a static
-buffer like its inputs: the eager run and the capture record K2's sweep
-counts into it, so every replay fills it again (`FrameGraph.sweeps`).
+Each capture owns a `SweepCounter` (`ops/cuda/cc_sweep.py`) in device
+memory, a static buffer like its inputs and outputs: the eager run and the
+capture record K2's sweep counts into it, so every replay fills it again
+(`FrameGraph.sweeps`), and the engine copies its words out with the
+frame's outputs.
 
 The graphs of one capture share one private memory pool and replay in
 capture order on the caller's current stream. The capture is in
@@ -217,14 +221,16 @@ class FrameGraph:
     captured at the second, replayed at every call from the second on.
     `left` and `right` are its input buffers: fill them, then call it with
     the program (which it does not keep: the engine that owns it is freed
-    when its last reference goes, not by the garbage collector). `sweeps`
-    holds K2's sweep counts of the program's last run."""
+    when its last reference goes, not by the garbage collector). From the
+    second call on it returns the capture's output tensors, which the next
+    call rewrites. `sweeps` holds K2's sweep counts of the program's last
+    run, in device memory."""
 
     def __init__(self, shape: tuple, device, capture=CudaCapture):
         self.new_capture = capture
         self.left = torch.empty(shape, dtype=torch.uint8, device=device)
         self.right = torch.empty_like(self.left)
-        self.sweeps = SweepCounter(device)
+        self.sweeps = SweepCounter(device, on_device=True)
         self.calls = 0
         self.segments: Optional[List[Segment]] = None
         self.outputs: Optional[dict] = None
@@ -242,7 +248,7 @@ class FrameGraph:
         with stats.span("rtdm.engine.replay"):
             replay(self.segments)
         self.sweeps.replayed()
-        return {k: None if v is None else v.clone() for k, v in self.outputs.items()}
+        return dict(self.outputs)
 
 
 class FrameGraphs:

@@ -3,14 +3,16 @@
 every field over several frames: BM, SGM-8 on the bidir route, SGM-5 on the
 chained route, a nonzero min_disparity, the WLS post filter with the mean
 disparity of each box. Also: the outputs a loop still holds survive the
-next replays (`run` at pipeline depths 2 and 3, `run_preloaded`'s dispatch),
-a setter between frames captures again and the next frame equals a fresh
-engine's, the capture works while `run`'s prefetch thread grabs, and under
-a profiler `benchmark/harness/spans.py` gives each stage range the same
+next replays (`run` at pipeline depths 2 and 3, both matchers, each frame's
+images in pinned memory of its own; `run_preloaded`'s dispatch), a setter
+between frames captures again and the next frame equals a fresh engine's,
+the capture works while `run`'s prefetch thread grabs, and under a
+profiler `benchmark/harness/spans.py` gives each stage range the same
 device operations with the replay as without, and K2's sweep counter holds
 the eager program's counts on every replay, read without a synchronise of
-its own and only under a profiler. Needs the card: run with
-`python3 -m pytest --noconftest` there (no JAX)."""
+its own and only under a profiler, and `run` puts each frame's own counts
+into the trace. `run`'s dispatch never waits for the card. Needs the card:
+run with `python3 -m pytest --noconftest` there (no JAX)."""
 
 import threading
 import time
@@ -96,19 +98,39 @@ def test_replays_equal_the_eager_program(case):
         assert any(step in stack for stack, _ in prog.segments), case
 
 
+def _memory(a: np.ndarray):
+    """(first byte, one past the last) of an array's buffer."""
+    lo = a.__array_interface__["data"][0]
+    return lo, lo + a.nbytes
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bm", "sgm"])
 @pytest.mark.parametrize("depth", [2, 3])
-def test_run_outputs_survive_later_replays(depth):
+def test_run_outputs_survive_later_replays(depth, kind):
+    """The consumer keeps every FrameResult: each equals the eager program
+    on its pair after all 12 frames ran; its images lie in pinned memory,
+    its per-box arrays were copied out of it, and no two arrays held share
+    a byte."""
     cuda_or_skip()
-    eng = Engine(_cfg(), source=_source(ring=5), device="cuda")
+    eng = Engine(_cfg(kind), source=_source(ring=5), device="cuda")
     got = {}
     eng.run(frames=12, on_frame=lambda i, r: got.__setitem__(i, r),
             print_stats_on_sigint=False, pipeline_depth=depth)
     assert sorted(got) == list(range(12)) and _graph(eng).calls == 12
     ref_src = _source(ring=5)
+    spans = []
     for i, res in got.items():
         left, right = ref_src.render(i % 5)[:2]
-        _assert_equal(res, _eager(eng, left, right), f"depth {depth} frame {i}")
+        _assert_equal(res, _eager(eng, left, right), f"{kind} depth {depth} frame {i}")
+        for k in FIELDS:
+            a = getattr(res, k)
+            if a is not None:
+                big = a.ndim >= 2 and a.shape[0] == res.mask.shape[0]
+                assert torch.from_numpy(a).is_pinned() == big, f"frame {i} {k}"
+                spans.append(_memory(a))
+    spans.sort()
+    assert all(b <= c for (_, b), (c, _) in zip(spans, spans[1:]))
 
 
 @pytest.mark.cuda
@@ -159,7 +181,10 @@ def test_a_setter_captures_again():
 
 class _SlowSource(SyntheticStereoSource):
     """Grabs slower than the loop's frames, so the prefetch thread is always
-    inside one; each grab's interval is kept."""
+    inside one; each grab's interval is kept. A grab outlasts the time from
+    the loop's taking a pair to the capture's start even where a slow first
+    frame filled the prefetch queue (the thread then grabs one frame a
+    pair taken) and the upload's pinned memory is still being allocated."""
 
     def __init__(self, *a, **kw):
         super().__init__(*a, **kw)
@@ -167,7 +192,7 @@ class _SlowSource(SyntheticStereoSource):
 
     def grab(self):
         t0 = time.perf_counter()
-        time.sleep(0.03)
+        time.sleep(0.1)
         out = super().grab()
         self.grabs.append((t0, time.perf_counter(), threading.current_thread().name))
         return out
@@ -195,7 +220,8 @@ def test_capture_while_the_prefetch_thread_grabs(monkeypatch):
     assert len(windows) == 1 and len(got) == 10
     (t0, t1), = windows
     during = [name for a, b, name in src.grabs if a <= t1 and b >= t0]
-    assert during and set(during) == {"rtdm-ingest"}, (during, t1 - t0)
+    assert during and set(during) == {"rtdm-ingest"}, (
+        during, t1 - t0, [(a - t0, b - t0, name) for a, b, name in src.grabs])
     ref_src = _source(ring=5)
     for i, res in got.items():
         _assert_equal(res, _eager(eng, *ref_src.render(i % 5)[:2]), f"frame {i}")
@@ -300,3 +326,67 @@ def test_sweep_counts_under_replay(kind):
         got = [eng.process_pair(left, right) for left, right in pairs]
     names = [e.name for e in prof.events() if e.name.startswith("rtdm.count.")]
     assert names == [f"rtdm.count.cc_sweeps.{n}" for n in expect] and len(got) == 4
+
+
+def _program_sweeps(eng, pairs):
+    """K2's sweeps of the eager program on each pair."""
+    out = []
+    for left, right in pairs:
+        with eng._sweeps.recording():
+            eng.frame_program(_dev(left), _dev(right))
+        torch.cuda.synchronize()
+        out.append(eng._sweeps.take())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bm", "sgm"])
+def test_run_counts_each_frames_own_sweeps(kind):
+    """Under a profiler `run` puts one count range a frame into the trace,
+    in frame order, each the sweeps of that frame's own program (eager,
+    captured, then replayed) while later frames already run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda_or_skip()
+    n = 8
+    eng = Engine(_cfg(kind), source=_source(), device="cuda")
+    src = _source()
+    expect = _program_sweeps(eng, [src.render(i)[:2] for i in range(n)])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run(frames=n, on_frame=lambda i, r: True, print_stats_on_sigint=False,
+                pipeline_depth=2)
+    names = [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+             if e.name.startswith("rtdm.count.")]
+    assert names == [f"rtdm.count.cc_sweeps.{c}" for c in expect]
+    assert _graph(eng).calls == n and all(c > 0 for c in expect)
+
+
+@pytest.mark.cuda
+def test_run_dispatch_never_waits_for_the_card():
+    """With no profiler, once a frame replays, neither its dispatch (the
+    upload and the replay) nor the enqueue of its pinned copies makes the
+    host wait for the device (set_sync_debug_mode "error" raises on any
+    synchronising call)."""
+    cuda_or_skip()
+    eng = Engine(_cfg(), source=_source(ring=5), device="cuda")
+    guarded = []
+
+    def strict(fn):
+        def call(*args):
+            if not any(p.segments is not None for p in eng._graphs._by_shape.values()):
+                return fn(*args)  # the eager frame and the capture
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                guarded.append(fn.__name__)
+        return call
+
+    eng._dispatch = strict(eng._dispatch)
+    eng._send = strict(eng._send)
+    got = {}
+    eng.run(frames=8, on_frame=lambda i, r: got.__setitem__(i, r),
+            print_stats_on_sigint=False, pipeline_depth=2)
+    assert len(got) == 8
+    assert guarded.count("_dispatch") == 6 and guarded.count("_send") == 7

@@ -4,7 +4,9 @@ plan (span nesting -> segments in capture order, a cut where the open graph
 holds no work moving it instead), the ranges a replay opens under a
 profiler, the capture hook limited to the capturing thread, and the
 engine's rule of when it runs eagerly, captures and replays (setters and
-new shapes capture again). The captures themselves run on the card:
+new shapes capture again), what a replay hands back, and the order in
+which `run` dispatches and retires frames. The captures themselves, and
+the pinned copies that retire a frame on the card, run on the card:
 `tests/test_torch_graph_cuda.py`."""
 
 import gc
@@ -346,6 +348,68 @@ def test_run_and_run_preloaded_go_through_the_graphs():
         else:
             eng.run_preloaded(5, n_inputs=2, pipeline_depth=2)
         assert calls == [False, True] and len(captures) == 1, loop
+
+
+def test_a_replay_hands_back_the_capture_outputs():
+    """A replay returns the capture's own output tensors (the caller copies
+    them out before the next replay); `run_preloaded`'s dispatch, whose loop
+    holds device outputs, copies them."""
+    eng = _engine()
+    captures = []
+    _counted(eng, captures)
+    left, right = (torch.from_numpy(a) for a in _source().render(0)[:2])
+    for _ in range(3):
+        out = eng._dispatch(*_source().render(0)[:2])
+    (prog,) = eng._graphs._by_shape.values()
+    assert prog.calls == 3 and all(out[k] is v for k, v in prog.outputs.items())
+    kept = eng._dispatch_resident(left, right)
+    assert all(kept[k] is not v and torch.equal(kept[k].nan_to_num(), v.nan_to_num())
+               for k, v in prog.outputs.items() if v is not None)
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_run_retires_frame_i_between_dispatches_i_plus_depth_minus_1_and_i_plus_depth(
+        depth, prefetch):
+    eng = _engine()
+    _counted(eng, [])
+    log = []
+    dispatch = eng._dispatch
+
+    def logged(left, right):
+        log.append(("dispatch", sum(e[0] == "dispatch" for e in log)))
+        return dispatch(left, right)
+
+    eng._dispatch = logged
+    n = 7
+    eng.run(frames=n, on_frame=lambda i, r: log.append(("retire", i)),
+            print_stats_on_sigint=False, pipeline_depth=depth, prefetch=prefetch)
+    assert [i for kind, i in log if kind == "retire"] == list(range(n))
+    at = {e: k for k, e in enumerate(log)}
+    for i in range(n):
+        assert at[("dispatch", min(i + depth - 1, n - 1))] < at[("retire", i)]
+        if i + depth < n:
+            assert at[("retire", i)] < at[("dispatch", i + depth)]
+
+
+@pytest.mark.parametrize("depth", [2, 3])
+def test_cpu_run_results_equal_the_eager_program(depth):
+    """On the CPU `run` hands over `_to_host` of each frame's program, as
+    before the card's pinned copies: every result the consumer kept equals
+    the program on its pair after the loop."""
+    eng = _engine("sgm")
+    got = {}
+    eng.run(frames=5, on_frame=lambda i, r: got.__setitem__(i, r),
+            print_stats_on_sigint=False, pipeline_depth=depth)
+    assert sorted(got) == list(range(5))
+    for i, res in got.items():
+        left, right = (torch.from_numpy(a) for a in _source().render(i)[:2])
+        ref = eng.frame_program(left, right)
+        for k, v in ref.items():
+            got_k = getattr(res, k)
+            assert (v is None) == (got_k is None), k
+            if v is not None:
+                np.testing.assert_array_equal(got_k, v.numpy(), err_msg=f"frame {i} {k}")
 
 
 def test_the_batch_paths_stay_eager():
