@@ -156,9 +156,8 @@ add of the same bytes (the memory's rate for that stream, single calls and
      CUDA launches, by the wrappers' and the libraries' counts; the
      single-frame entries never) with every plain version guarded, every
      frame equal to the plain single-frame program of its rig's pair; then
-     `step_batch` frames/s beside the pipelined mode's (`dispatch_batch`,
-     phase 11's steps) and the single-stream `run`, with a step's device
-     time, device operations and busy share.
+     `step_batch` frames/s beside the single-stream `run`, with a step's
+     device time, device operations and busy share.
 
 The last lines are the kernels' JSON summary (each kernel's first timed
 case, and under `cases` every timed case with its own bound and library
@@ -191,7 +190,7 @@ STRETCH_FRAMES = 2  # frames of the checked stretch run (its plain program is sl
 TIMED_FRAMES = 30  # frames of the timed engine run
 CLI_FRAMES = 30  # frames of each checked CLI run (phase 11)
 PRELOAD_FRAMES = 120  # frames of the CLI's run and run_preloaded rates
-BATCH = 4  # rigs of the pipelined batch mode (BASELINE.md: 4x 720p pairs)
+BATCH = 4  # rigs of the batch program (BASELINE.md: 4x 720p pairs)
 BATCH_STEPS = 1  # checked steps of each batch run (4 plain frames each)
 BATCH_TIMED_STEPS = 20  # timed steps of each batch run
 #: seconds a phase 11 step may take before the run fails (a hang)
@@ -687,28 +686,6 @@ def _deadline(seconds: float, what: str):
     print(f"{what}: within its {seconds:.0f} s deadline", flush=True)
 
 
-@contextlib.contextmanager
-def _streams_seen():
-    """While inside, records the CUDA stream of every kernel launch by the
-    wrappers' modules: {module name: set of stream handles}."""
-    from rt_depth_map_tpu_torch.ops.cuda import _build
-
-    seen = {}
-    stream_of = _build.stream_of
-
-    def recording(t):
-        handle = stream_of(t)
-        seen.setdefault(sys._getframe(1).f_globals["__name__"].rsplit(".", 1)[-1],
-                        set()).add(handle)
-        return handle
-
-    _build.stream_of = recording
-    try:
-        yield seen
-    finally:
-        _build.stream_of = stream_of
-
-
 def _host_syncs(fn):
     """The sites at which fn() made the host wait for the device, by
     torch.cuda.set_sync_debug_mode("warn"), after a call to warm up (kernel
@@ -934,17 +911,13 @@ def _coop_streams(card):
 
 def _entry_points(card):
     """Phase 11: the CLI (BM default, SGM-8, run_preloaded) from calibration
-    files, the pipelined batch mode on four streams (`dispatch_batch`,
-    SGM-8 and BM), the setters, and the host syncs of a frame. Returns
-    {path: launches}."""
+    files, the cooperative kernels on four streams, the setters, and the
+    host syncs of a frame. Returns {path: launches}."""
     import tempfile
 
     import torch
 
-    from rt_depth_map_tpu_torch import Engine
-    from rt_depth_map_tpu_torch.ops.cuda import KERNELS, reset_launch_counts
     from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
-    from rt_depth_map_tpu_torch.sources import MultiStreamSource
 
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -983,91 +956,6 @@ def _entry_points(card):
         print(f"phase 11 cli bm {W}x{H} D=192 on {card}: run {rates['run']:.2f} "
               f"frames/s, run_preloaded {rates['run_preloaded']:.2f} frames/s "
               f"({PRELOAD_FRAMES} frames, no consumer)", flush=True)
-
-    # -- the pipelined batch mode: four rigs, four streams (dispatch_batch) --
-    for kind, path in (("sgm", SGM_PATH), ("bm", BM_PATH)):
-        what = f"phase 11 batch {kind} x{BATCH} {W}x{H}"
-        cfg = _config(kind, W, H).replace(batch=BATCH)
-        rigs = lambda ring=0: MultiStreamSource(  # noqa: E731
-            [_source(W, H, ring=ring, seed=s) for s in range(BATCH)])
-        eng = Engine(cfg, rectification=_rectification(W, H), source=rigs(),
-                     device=DEV)
-        eng.warmup()
-        batch_streams = {s.cuda_stream for s in eng._streams}
-        with _deadline(BATCH_DEADLINE, f"{what} checked steps"):
-            with _no_plain_on_card(), _streams_seen() as seen:
-                reset_launch_counts()
-                results = [_pipelined_step(eng) for _ in range(BATCH_STEPS)]
-                launches = {wr.__name__: wr.launches for wr, _, _ in KERNELS}
-        _require_launched(launches, path, what, BATCH_ENTRIES)
-        coop = ("cc_sweep",) + (("sgm_vert_wta",) if kind == "sgm" else ())
-        for mod in coop:
-            if not batch_streams <= seen.get(mod, set()):
-                raise AssertionError(f"{what}: {mod} launched on "
-                                     f"{len(seen.get(mod, ()))} streams, not on all "
-                                     f"{BATCH} of the batch")
-        print(f"{what}: {BATCH_STEPS} steps, launches {launches}; the cooperative "
-              f"kernels ({', '.join(coop)}) launched on all {BATCH} streams", flush=True)
-        ref_rigs = [_source(W, H, seed=s) for s in range(BATCH)]
-        for step, res in enumerate(results):
-            for b, rig in enumerate(ref_rigs):
-                lf, rf, _, _ = rig.render(step)
-                ref = FrameResult(**_to_host(eng.frame_program(
-                    torch.from_numpy(lf).to(DEV), torch.from_numpy(rf).to(DEV),
-                    plain=True)))
-                for k in ("disparity", "boxes", "mask", "count", "rgb_rect"):
-                    if not np.array_equal(getattr(res[b], k), getattr(ref, k)):
-                        raise AssertionError(f"{what} step {step} rig {b}: {k} "
-                                             f"differs from the plain program")
-                for k in ("depth_cm", "mean_z"):
-                    if not np.allclose(getattr(res[b], k), getattr(ref, k),
-                                       rtol=1e-5, equal_nan=True):
-                        raise AssertionError(f"{what} step {step} rig {b}: {k} "
-                                             f"off the plain program's")
-                if not res[b].has_objects:
-                    raise AssertionError(f"{what} step {step} rig {b}: no box")
-        print(f"{what}: every frame of {BATCH_STEPS} steps equals the plain program "
-              f"of its rig's pair", flush=True)
-        runs[f"batch {kind} x{BATCH} {W}x{H}"] = launches
-
-        timed = Engine(cfg, rectification=_rectification(W, H), source=rigs(8),
-                       device=DEV)
-        with _deadline(BATCH_DEADLINE, f"{what} timing"):
-            for _ in range(8):  # render each rig's ring
-                _pipelined_step(timed)
-            _sync()
-            t0 = time.perf_counter()
-            for _ in range(BATCH_TIMED_STEPS):
-                _pipelined_step(timed)
-            batch_fps = BATCH * BATCH_TIMED_STEPS / (time.perf_counter() - t0)
-            single = _engine(kind, W, H, ring=8)
-            single.warmup()
-            single.run(frames=8, print_stats_on_sigint=False)  # render the ring
-            f0, s0 = single.stats.wall_frames, single.stats.wall_seconds
-            single.run(frames=BATCH * BATCH_TIMED_STEPS, print_stats_on_sigint=False)
-            single_fps = ((single.stats.wall_frames - f0)
-                          / (single.stats.wall_seconds - s0))
-            lefts = [_source(W, H, seed=s).render(0)[0] for s in range(BATCH)]
-            rights = [_source(W, H, seed=s).render(0)[1] for s in range(BATCH)]
-            step = lambda: [_to_host(o) for o in  # noqa: E731
-                            timed.dispatch_batch(lefts, rights)]
-            dev_ms, wall_ms, ops = _device_busy(step)
-            n, streams, over_ms, pairs, n_coop = _trace_overlap(step)
-            syncs = _host_syncs(lambda: timed.dispatch_batch(lefts, rights))
-        print(f"{what}: host syncs of dispatch_batch: {syncs or 'none'}", flush=True)
-        if any("rt_depth_map_tpu_torch" in site for site in syncs):
-            raise AssertionError(f"{what}: dispatch_batch waits for the device")
-        print(f"{what} timing on {card}: pipelined steps {batch_fps:.2f} frames/s over "
-              f"{BATCH_TIMED_STEPS} steps; single-stream run {single_fps:.2f} frames/s "
-              f"over {BATCH * BATCH_TIMED_STEPS} frames; a step {wall_ms:.3f} ms of wall, "
-              f"{dev_ms:.3f} ms of kernel time summed over its streams (ratio "
-              f"{dev_ms / wall_ms:.3f}), {ops:g} device operations", flush=True)
-        print(f"{what} trace of one step: {n} kernels on {streams} streams, "
-              f"{over_ms:.3f} ms with kernels of two or more streams running; "
-              f"{pairs} pairs of cooperative kernels ({n_coop} in all) overlapping "
-              f"across streams", flush=True)
-        del eng, timed, single
-        torch.cuda.empty_cache()
 
     _coop_streams(card)
 
@@ -1114,19 +1002,6 @@ def _lib_count(lib: str, name: str):
     from rt_depth_map_tpu_torch.ops.cuda import _build
 
     return ctypes.c_int.in_dll(_build.load(lib), name)
-
-
-def _pipelined_step(eng):
-    """One step of the pipelined batch mode: a pair from each rig of the
-    engine's MultiStreamSource, `dispatch_batch` (a frame program a rig, each
-    on its own stream), the B results on the host: `step_batch` with
-    `dispatch_batch` in place of the batch program."""
-    from rt_depth_map_tpu_torch.pipeline.engine import FrameResult, _to_host
-
-    pairs = eng.source.grab_batch()
-    outs = eng.dispatch_batch([eng._decode_eye(lf, 0) for lf, _ in pairs],
-                              [eng._decode_eye(rf, 1) for _, rf in pairs])
-    return [FrameResult(**_to_host(o)) for o in outs]
 
 
 def _rig_batch(w, h, step=0):
@@ -1268,15 +1143,13 @@ def _batch_kernels(check, st, m):
 
 def _batch_modes(card):
     """Phase 13: the batch program at 1280x720 with B = BATCH rigs
-    (MultiStreamSource, as phase 11), SGM-8 D=128 and BM-128: each step's
+    (a MultiStreamSource), SGM-8 D=128 and BM-128: each step's
     launches against BATCH_PER_STEP and the libraries' counts of the
     batched K1, K3 and K5 (BATCH_LIB_PER_STEP), with the counts set to 0
     just before and every plain version guarded; every frame equal to the
     plain single-frame program of its rig's pair (depth to rtol 1e-5); then
-    `step_batch` frames/s beside the pipelined mode's steps
-    (`_pipelined_step`) and `run`, and a step's device ms, device
-    operations and busy share for both batch modes. Returns {path:
-    launches}."""
+    `step_batch` frames/s beside `run`, and a step's device ms, device
+    operations and busy share. Returns {path: launches}."""
     import torch
 
     from rt_depth_map_tpu_torch import Engine
@@ -1336,33 +1209,27 @@ def _batch_modes(card):
               flush=True)
         runs[f"batch program {kind} x{BATCH} {W}x{H}"] = launches
         del eng
-        # timing: step_batch and the pipelined steps beside the single-stream run
+        # timing: step_batch beside the single-stream run
         rates = {}
         lefts, rights = _rig_batch(W, H)
         with _deadline(BATCH_DEADLINE, f"phase 13 {kind} timing"):
             timed = Engine(cfg, rectification=_rectification(W, H),
                            source=rigs(8), device=DEV)
-            modes = (("batch program", timed.step_batch,
-                      lambda: timed.process_batch(lefts, rights)),
-                     ("pipelined", lambda: _pipelined_step(timed),
-                      lambda: [_to_host(o) for o in
-                               timed.dispatch_batch(lefts, rights)]))
-            for mode, step, resident in modes:
-                for _ in range(8):  # render each rig's ring
-                    step()
-                _sync()
-                t0 = time.perf_counter()
-                for _ in range(BATCH_TIMED_STEPS):
-                    step()
-                fps = BATCH * BATCH_TIMED_STEPS / (time.perf_counter() - t0)
-                dev_ms, wall_ms, ops = _device_busy(resident)
-                rates[mode] = fps
-                print(f"phase 13 {mode} {kind} x{BATCH} {W}x{H} timing on {card}: "
-                      f"{fps:.2f} frames/s over {BATCH_TIMED_STEPS} steps; a step on "
-                      f"the same images each time {wall_ms:.3f} ms of wall, "
-                      f"{dev_ms:.3f} ms of device time (busy "
-                      f"{dev_ms / wall_ms:.3f}), {ops:g} device operations",
-                      flush=True)
+            for _ in range(8):  # render each rig's ring
+                timed.step_batch()
+            _sync()
+            t0 = time.perf_counter()
+            for _ in range(BATCH_TIMED_STEPS):
+                timed.step_batch()
+            fps = BATCH * BATCH_TIMED_STEPS / (time.perf_counter() - t0)
+            dev_ms, wall_ms, ops = _device_busy(lambda: timed.process_batch(lefts, rights))
+            rates["batch program"] = fps
+            print(f"phase 13 batch program {kind} x{BATCH} {W}x{H} timing on {card}: "
+                  f"{fps:.2f} frames/s over {BATCH_TIMED_STEPS} steps; a step on "
+                  f"the same images each time {wall_ms:.3f} ms of wall, "
+                  f"{dev_ms:.3f} ms of device time (busy "
+                  f"{dev_ms / wall_ms:.3f}), {ops:g} device operations",
+                  flush=True)
             del timed
             single = _engine(kind, W, H, ring=8)
             single.warmup()
@@ -2954,7 +2821,7 @@ def main() -> int:
         del p_eng
         torch.cuda.empty_cache()
 
-    # -- 11. the entry points: the CLI, the batch mode, setters, syncs -------
+    # -- 11. the entry points: the CLI, cooperative streams, setters, syncs --
     entry_runs = _entry_points(card)
 
     # -- 12. the multi-rank paths: parallel/ on torch.distributed -----------

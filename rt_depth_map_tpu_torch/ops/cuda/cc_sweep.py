@@ -21,11 +21,9 @@ which a caller reads after its own synchronise.
 
 A program counts its calls' sweeps with a `SweepCounter`: while it
 records, each call (kernel or plain) writes its count into the counter's
-next word instead. On the card the words are pinned host memory that the
-kernel writes, so reading them after a synchronise needs no device
-operation; or, for a captured program whose frames a caller retires one
-by one (`on_device`), device memory that each replay fills again and
-that the caller copies out with the frame's outputs.
+next word instead. The words are in the device's own memory; a captured
+program holds their addresses, so each replay fills them again, and a
+caller copies them out with the program's outputs.
 
 `seg_min_propagate` launches the kernel for CUDA tensors and runs
 `seg_min_propagate_plain` for CPU tensors; any other device raises.
@@ -62,20 +60,13 @@ _local = _Local()
 
 
 class SweepCounter:
-    """K2's sweep counts of one program, one int32 word a call: the calls
-    made while the counter records (`recording`) write their counts into
-    `words` in call order, on the card from the kernel into pinned host
-    memory, or with on_device into device memory. A captured program
-    holds the words' addresses, so each replay writes them again
-    (`replayed`)."""
+    """K2's sweep counts of one program, one int32 word a call on `device`:
+    the calls made while the counter records (`recording`) write their
+    counts into `words` in call order."""
 
-    def __init__(self, device, size: int = 16, on_device: bool = False):
-        device = torch.device(device)
-        self.pinned = device.type == "cuda" and not on_device
-        self.words = torch.zeros(size, dtype=torch.int32, pin_memory=self.pinned,
-                                 device=device if on_device else "cpu")
+    def __init__(self, device, size: int = 16):
+        self.words = torch.zeros(size, dtype=torch.int32, device=device)
         self.calls = 0  # the calls of the program that recorded last
-        self.fresh = False  # a program wrote the words since `take`
 
     @contextlib.contextmanager
     def recording(self):
@@ -87,27 +78,12 @@ class SweepCounter:
             yield self
         finally:
             _local.counter = outer
-            self.fresh = True
-
-    def replayed(self) -> None:
-        """A replay of the program that recorded last was enqueued."""
-        self.fresh = True
 
     def next_word(self) -> torch.Tensor:
         if self.calls == len(self.words):
             raise RuntimeError(f"SweepCounter: more than {len(self.words)} calls")
         self.calls += 1
         return self.words[self.calls - 1: self.calls]
-
-    def take(self) -> Optional[int]:
-        """The sweeps of the last program that wrote the words, summed over
-        its calls, once: None where no program wrote them since the last
-        take. Call it after a synchronise that waited for that program
-        (words on the device are read with a copy of their own)."""
-        if not self.fresh:
-            return None
-        self.fresh = False
-        return int(self.words[:self.calls].sum())
 
 
 def _run_min(f: torch.Tensor, allowed: torch.Tensor) -> torch.Tensor:
@@ -285,7 +261,7 @@ def seg_min_propagate(field: torch.Tensor, active: torch.Tensor,
                         device=f.device)
     cap = UNCAPPED if max_rounds is None else int(max_rounds)
     counter = _local.counter
-    if counter is not None and not (counter.pinned or counter.words.is_cuda):
+    if counter is not None and not counter.words.is_cuda:
         raise ValueError("seg_min_propagate: a CUDA call records into a counter "
                          "made for the CPU")
     rounds = state[3:4] if counter is None else counter.next_word()

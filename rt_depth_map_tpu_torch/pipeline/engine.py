@@ -28,45 +28,35 @@ refines the left disparity into `filtered_disparity`. With
 over the depth mean's pixels, and `labels()` shows it.
 
 The HSV thresholds and the minimum object size change at run time
-(`set_hsv_thresholds`, `set_min_object_size`) without a rebuild. With
-`EngineConfig.batch` B > 1, `process_batch` and `step_batch` run B rigs a
-step through one B-frame program (`batch_program`, the reference's fused
-`_build_batch_frame_fn`) on the current stream: the batched K1 (both views
-of every frame in one launch), the colour and morphology stages over the
-batch, detection frame by frame, and for SGM `stereo_sgbm_batch`, whose
-K3, K12, K4, K12, K5 and K6 are each one launch for the B frames. Each of
-its frames equals `frame_program` on its pair. `dispatch_batch` runs the
-reference's pipelined mode instead: B independent frame programs, each on
-a CUDA stream of its own, returned without waiting.
+(`set_hsv_thresholds`, `set_min_object_size`) without a rebuild.
 
-On the card the single-frame program runs as captured CUDA graphs
-(`pipeline/graphs.py`): `run`, `run_preloaded` and `process_pair` (`step`,
-`warmup`, the CLI) upload each pair into the input buffers of its shape's
-capture, whose graphs replay; the first frame of a shape runs eagerly and
-the second is captured, cut at the program's spans. The setters drop the
-captures: the next frame runs eagerly and the one after captures again.
-`frame_program` itself, `batch_program` (`process_batch`, `step_batch`),
-`dispatch_batch` and the CPU path run eagerly. There is no compile step;
-the CUDA kernels build at their first launch.
+Dispatch: `_dispatch` runs the frame program on one pair, host images or
+device tensors. On the card the pair goes into the input buffers of its
+shape's capture (`pipeline/graphs.py`): the first frame of a shape runs
+eagerly, the second is captured, cut at the program's spans, and every
+later frame replays; the setters drop the captures. With
+`EngineConfig.batch` B > 1, `_dispatch_rigs` runs B pairs as one B-frame
+program (`batch_program`, the reference's fused `_build_batch_frame_fn`),
+eagerly: the batched K1, the colour and morphology stages over the batch,
+detection frame by frame, and for SGM `stereo_sgbm_batch`, whose K3, K12,
+K4, K12, K5 and K6 are each one launch for the B frames; each of its
+frames equals `frame_program` on its pair. Each dispatch returns the
+program's device outputs and the `SweepCounter` its K2 calls wrote their
+sweep counts into: a capture's own, or the engine's for an eager program.
+There is no compile step; the CUDA kernels build at their first launch.
 
-A single frame is retired by its own event on the card (`run` with a
-consumer, `process_pair`): right behind its program, inside the dispatch
-and before the next frame's upload, each output field is copied without
-waiting into pinned host memory of the frame's own (`_PinnedFrame`), from
-the capture's outputs where it replayed, and an event is recorded. The
-frame's FrameResult waits for that event alone, so the card runs the next
-frame while the host hands this one over; its images stay in that pinned
-memory until the FrameResult is dropped. `run` without a consumer reads
-one small field every few frames as backpressure; the batch paths and the
-CPU copy to the host with a synchronise (`_to_host`).
-
-K2's sweeps are counted (`SweepCounter`): each capture fills its own
-counter in device memory, the eager single-frame and batch programs the
-engine's. While a profiler runs, the callers that read a whole result
-back put them into the trace as `rtdm.count.cc_sweeps.<n>`
-(`stats.count`), once a program run: on the card a single frame's own,
-copied out with its fields; `process_batch`, and the CPU, those of the
-program dispatched last, which their synchronise waited for.
+Retire: every caller that hands results over (`process_pair`, `step`,
+`run` with a consumer, `process_batch`, `step_batch`) takes a program's
+outputs and sweep words with `_send`, inside the dispatch and before the
+next upload: on the card each is copied without waiting into pinned host
+memory of its own and an event is recorded (span `rtdm.engine.d2h_async`),
+so the card runs the next program while the host hands this one over; on
+the CPU the outputs are held and the words copied. `_receive` waits for
+that event alone (on the CPU it copies the fields to numpy) and, while a
+profiler runs, puts the program's own sweeps into the trace as
+`rtdm.count.cc_sweeps.<n>`, one range a program run. `run` without a
+consumer and `run_preloaded` hand nothing over: they read one small field
+every few frames as backpressure.
 """
 
 from __future__ import annotations
@@ -165,7 +155,7 @@ def _to_host(out: dict) -> dict:
 
 
 #: fields of fewer bytes than this (the per-box arrays) are copied out of
-#: their pinned memory when the frame retires and it returns to the cache:
+#: their pinned memory when the program retires and it returns to the cache:
 #: a consumer may keep them for every frame, and each block it kept would
 #: take a page-locked allocation of its own. The images are handed over in it.
 _COPY_OUT_BYTES = 1 << 16
@@ -177,27 +167,36 @@ def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
     return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True)
 
 
-class _PinnedFrame:
-    """One frame's outputs on their way to the host, on the card: each field
-    and the words of K2's sweep counter copied into pinned memory of the
-    frame's own, then an event on `stream`. The memory returns to the
+class _Sent:
+    """One program's outputs and the words of its K2 sweep counter on their
+    way to the host, taken right behind the program. On the card (`stream`
+    given) each is copied without waiting into pinned memory of its own,
+    then an event is recorded on `stream`: the memory returns to the
     allocator's cache only when the FrameResult that holds it is dropped,
-    so no later frame writes it."""
+    so no later program writes it. On the CPU the program has run: the
+    outputs are its own and the words a copy."""
 
-    def __init__(self, out: dict, sweeps: SweepCounter, stream):
-        self.host = {k: _pinned_copy(v) for k, v in out.items() if v is not None}
-        self.sweeps = _pinned_copy(sweeps.words[:sweeps.calls])
+    def __init__(self, out: dict, sweeps: SweepCounter, stream=None):
+        words = sweeps.words[:sweeps.calls]
+        self.done = None
+        if stream is None:
+            self.out, self.sweeps = out, words.clone()
+            return
+        self.out = {k: _pinned_copy(v) for k, v in out.items() if v is not None}
+        self.sweeps = _pinned_copy(words)
         self.done = torch.cuda.Event()
         self.done.record(stream)
 
     def wait(self) -> dict:
         """The fields as numpy arrays, once the copies are done."""
+        if self.done is None:
+            return _to_host(self.out)
         self.done.synchronize()
         return {k: v.numpy() if v.nbytes >= _COPY_OUT_BYTES else v.numpy().copy()
-                for k, v in self.host.items()}
+                for k, v in self.out.items()}
 
     def sweep_count(self) -> int:
-        """K2's sweeps of this frame's program, summed (after `wait`)."""
+        """K2's sweeps of the program, summed over its calls (after `wait`)."""
         return int(self.sweeps.sum())
 
 
@@ -270,15 +269,10 @@ class Engine:
         self.max_consecutive_decode_failures = 30
         self._consecutive_failures = 0
         self._frames_done = 0
-        # dispatch_batch's streams, one a rig, made once
-        self._streams = ([torch.cuda.Stream(device) for _ in range(cfg.batch)]
-                         if device.type == "cuda" and cfg.batch > 1 else None)
         # the single-frame program's captures on the card, one an input shape
         self._graphs = FrameGraphs(device) if device.type == "cuda" else None
-        # K2's sweeps of the eager programs (three calls a frame), and the
-        # counter of the program dispatched last
+        # K2's sweeps of the eager programs (three calls a frame)
         self._sweeps = SweepCounter(device, 16 * max(1, cfg.batch))
-        self._counted: Optional[SweepCounter] = None
 
     # -- device program ----------------------------------------------------
     def _depth(self, disp, filt, boxes, rgbr, filtered) -> dict:
@@ -402,78 +396,65 @@ class Engine:
         """One decoded image (numpy or tensor) onto the device, on the
         current stream, into `out` where given. On the card the host copies
         it into pinned memory and does not wait for the device: a copy from
-        pageable memory would wait for every frame queued before it."""
+        pageable memory would wait for every frame queued before it. An
+        image already on the device is not uploaded: it is returned, or
+        copied into `out`."""
+        if isinstance(img, torch.Tensor) and img.device.type == self.device.type:
+            return img if out is None else out.copy_(img)
         with span("rtdm.engine.upload"):
             t = img if isinstance(img, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(img))
-            if self.device.type == "cuda" and t.device.type == "cpu":
+            if self.device.type == "cuda":
                 t = t.pin_memory()
             if out is not None:
                 return out.copy_(t, non_blocking=True)
             return t.to(self.device, non_blocking=True)
 
-    def _dispatch(self, left: np.ndarray, right: np.ndarray) -> dict:
-        """H2D + the frame program for one decoded pair (device outputs).
+    def _dispatch(self, left, right) -> Tuple[dict, SweepCounter]:
+        """The frame program for one decoded pair, host images or device
+        tensors: (its device outputs, the counter its K2 sweeps went into).
         On the card the pair goes into the input buffers of its shape's
-        captured program, which replays."""
+        capture, whose graphs replay; a replay's outputs are the capture's
+        own, which the next replay rewrites."""
         if self._graphs is None:
             return self._eager(self.frame_program, self._upload(left),
                                self._upload(right))
         prog = self._graphs.get(left.shape, right.shape)
         self._upload(left, prog.left)
         self._upload(right, prog.right)
-        self._counted = prog.sweeps
-        return prog(self.frame_program)
+        return prog(self.frame_program), prog.sweeps
 
-    def _dispatch_resident(self, left: torch.Tensor, right: torch.Tensor) -> dict:
-        """The frame program for a pair already on the device; on the card
-        copied into the input buffers of its shape's captured program."""
-        if self._graphs is None:
-            return self._eager(self.frame_program, left, right)
-        prog = self._graphs.get(left.shape, right.shape)
-        prog.left.copy_(left)
-        prog.right.copy_(right)
-        self._counted = prog.sweeps
-        # a copy of its own: the loop holds the outputs on the device
-        return {k: None if v is None else v.clone()
-                for k, v in prog(self.frame_program).items()}
+    def _dispatch_rigs(self, lefts, rights) -> Tuple[dict, SweepCounter]:
+        """The batch program for B decoded pairs, each eye's B images
+        uploaded as one pinned (B, H, W, 3) copy: as `_dispatch`."""
+        def stacked(imgs):
+            return self._upload(imgs if isinstance(imgs, torch.Tensor)
+                                else np.stack(imgs))
 
-    def _eager(self, program: Callable, left, right) -> dict:
+        return self._eager(self.batch_program, stacked(lefts), stacked(rights))
+
+    def _eager(self, program: Callable, left, right) -> Tuple[dict, SweepCounter]:
         """`program(left, right)`, its K2 sweeps counted by the engine."""
-        self._counted = self._sweeps
         with self._sweeps.recording():
-            return program(left, right)
+            return program(left, right), self._sweeps
 
-    def _count_sweeps(self) -> None:
-        """Under a profiler, after a synchronise that waited for the program
-        dispatched last: its K2 sweeps, `rtdm.count.cc_sweeps.<n>`."""
-        if self._counted is not None:
-            count("cc_sweeps", self._counted.take)
-
-    def _send(self, out: dict):
+    def _send(self, out: dict, sweeps: SweepCounter) -> _Sent:
         """The outputs of the program just dispatched on their way to the
-        host, inside the dispatch: on the card its `_PinnedFrame`, enqueued
-        right behind the program (span `rtdm.engine.d2h_async`); on the CPU
-        `out` itself."""
+        host, inside the dispatch: on the card enqueued right behind the
+        program (span `rtdm.engine.d2h_async`)."""
         if self.device.type != "cuda":
-            return out
+            return _Sent(out, sweeps)
         with span("rtdm.engine.d2h_async"):
-            return _PinnedFrame(out, self._counted, torch.cuda.current_stream(self.device))
+            return _Sent(out, sweeps, torch.cuda.current_stream(self.device))
 
-    def _receive(self, sent, measure) -> FrameResult:
-        """The FrameResult of what `_send` returned. Waits inside `measure`
-        (the caller's `rtdm.engine.d2h` span): on the card for the frame's
-        own copies, on the CPU in `_to_host`. Then, under a profiler, K2's
-        sweeps: on the card the frame's own, on the CPU those of the
-        program dispatched last."""
-        pinned = isinstance(sent, _PinnedFrame)
+    def _receive(self, sent: _Sent, measure) -> dict:
+        """The host fields of what `_send` returned, waited for inside
+        `measure` (the caller's `rtdm.engine.d2h` span); then, under a
+        profiler, the program's K2 sweeps as `rtdm.count.cc_sweeps.<n>`."""
         with measure:
-            host = sent.wait() if pinned else _to_host(sent)
-        if pinned:
-            count("cc_sweeps", sent.sweep_count)
-        else:
-            self._count_sweeps()
-        return FrameResult(**host)
+            host = sent.wait()
+        count("cc_sweeps", sent.sweep_count)
+        return host
 
     # -- run-time thresholds -------------------------------------------------
     def set_hsv_thresholds(self, low, high) -> None:
@@ -502,65 +483,20 @@ class Engine:
         if self._graphs is not None:
             self._graphs.clear()
 
-    # -- the pipelined multi-stream mode ------------------------------------
-    def dispatch_batch(self, lefts, rights) -> list:
-        """B independent frame programs, one a rig (the reference's
-        pipelined multi-stream mode); returns the B device output dicts
-        WITHOUT waiting. lefts/rights: B decoded (H, W, 3) uint8 images
-        each. On the card each frame is uploaded and runs on its own CUDA
-        stream, and the current stream waits for them on the device before
-        it reads their outputs; on the CPU they run one after the other."""
-        B = self.cfg.batch
-        if not len(lefts) == B == len(rights):
-            raise ValueError(f"dispatch_batch: {len(lefts)} left and "
-                             f"{len(rights)} right images for batch {B}")
-        with span("rtdm.engine.dispatch"):
-            if self._streams is None:
-                return [self.frame_program(self._upload(l), self._upload(r))
-                        for l, r in zip(lefts, rights)]
-            main = torch.cuda.current_stream(self.device)
-            st = self.state
-            outs = []
-            for s, left, right in zip(self._streams, lefts, rights):
-                # the state may have been written on `main` (a setter); a
-                # setter's new tensors free the old ones, which must
-                # outlive this stream's reads
-                s.wait_stream(main)
-                st.hsv_low.record_stream(s)
-                st.hsv_high.record_stream(s)
-                with torch.cuda.stream(s):
-                    outs.append(self.frame_program(self._upload(left),
-                                                   self._upload(right)))
-            for s, out in zip(self._streams, outs):
-                main.wait_stream(s)
-                for t in out.values():
-                    if t is not None:
-                        t.record_stream(main)  # read and freed on `main`
-            return outs
-
+    # -- B rigs a step ------------------------------------------------------
     def process_batch(self, lefts, rights) -> list:
         """B decoded pairs (multi-stream batching, BASELINE.md) through the
-        batch program on the current stream, each eye's B images uploaded
-        as one pinned (B, H, W, 3) copy. Returns a list of B FrameResults.
-        The one program runs every batch: on the card it is ahead of
-        `dispatch_batch`'s B streams for both matchers (PERF.md), and its
-        frames are the same."""
+        batch program on the current stream. Returns a list of B
+        FrameResults."""
         B = self.cfg.batch
         if B <= 1:
             raise ValueError("process_batch needs EngineConfig.batch > 1")
         if not len(lefts) == B == len(rights):
             raise ValueError(f"process_batch: {len(lefts)} left and "
                              f"{len(rights)} right images for batch {B}")
-
-        def stacked(imgs):
-            return self._upload(imgs if isinstance(imgs, torch.Tensor)
-                                else np.stack(imgs))
-
         with span("rtdm.engine.dispatch"):
-            out = self._eager(self.batch_program, stacked(lefts), stacked(rights))
-        with span("rtdm.engine.d2h"):
-            host = _to_host(out)
-        self._count_sweeps()
+            sent = self._send(*self._dispatch_rigs(lefts, rights))
+        host = self._receive(sent, span("rtdm.engine.d2h"))
         return [FrameResult(**{k: v[b] for k, v in host.items()})
                 for b in range(B)]
 
@@ -609,8 +545,8 @@ class Engine:
     def process_pair(self, left_rgb: np.ndarray, right_rgb: np.ndarray) -> FrameResult:
         """Run the frame program on one decoded RGB pair."""
         with span("rtdm.engine.dispatch"):
-            sent = self._send(self._dispatch(left_rgb, right_rgb))
-        return self._receive(sent, span("rtdm.engine.d2h"))
+            sent = self._send(*self._dispatch(left_rgb, right_rgb))
+        return FrameResult(**self._receive(sent, span("rtdm.engine.d2h")))
 
     def step(self) -> Optional[FrameResult]:
         """One iteration of the frame loop (estimator.cpp:18-82)."""
@@ -694,7 +630,7 @@ class Engine:
         def retire(idx, out):
             # no span encloses the consumer: it may start or stop a profiler
             if on_frame is not None:
-                res = self._receive(out, st.measure("d2h", "rtdm.engine.d2h"))
+                res = FrameResult(**self._receive(out, st.measure("d2h", "rtdm.engine.d2h")))
                 if on_frame(idx, res) is False:
                     stop["flag"] = True  # consumer requested stop
             elif idx % sync_every == 0:
@@ -768,8 +704,9 @@ class Engine:
                 pair = next_pair()
                 if pair is not None:
                     with st.measure("dispatch", "rtdm.engine.dispatch"):
-                        out = self._dispatch(*pair)
-                        pending.append((i, out if on_frame is None else self._send(out)))
+                        out, sweeps = self._dispatch(*pair)
+                        pending.append((i, out if on_frame is None
+                                        else self._send(out, sweeps)))
                     self._frames_done += 1
                 while len(pending) >= depth:
                     retire(*pending.popleft())
@@ -827,7 +764,7 @@ class Engine:
             st.start_iteration()
             left, right = pairs[i % len(pairs)]
             with st.measure("dispatch", "rtdm.engine.dispatch"):
-                pending.append(self._dispatch_resident(left, right))
+                pending.append(self._dispatch(left, right)[0])
             self._frames_done += 1
             while len(pending) >= max(1, pipeline_depth):
                 out = pending.popleft()

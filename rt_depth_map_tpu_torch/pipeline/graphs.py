@@ -9,8 +9,7 @@ inputs are two static (H, W, 3) uint8 device buffers that the engine's
 upload writes into. A replay returns the capture's own output tensors,
 which the next replay rewrites: a caller that keeps a frame copies them
 out on the same stream before it enqueues the next one (the engine into
-pinned host memory of the frame's own, `Engine._send`; `run_preloaded`
-into device tensors).
+pinned host memory of the frame's own, `Engine._send`).
 
 The capture is cut wherever one of the program's `rtdm.` spans opens or
 closes (`pipeline/stats.py` `cutting`); a cut where the open graph holds no
@@ -230,7 +229,7 @@ class FrameGraph:
         self.new_capture = capture
         self.left = torch.empty(shape, dtype=torch.uint8, device=device)
         self.right = torch.empty_like(self.left)
-        self.sweeps = SweepCounter(device, on_device=True)
+        self.sweeps = SweepCounter(device)
         self.calls = 0
         self.segments: Optional[List[Segment]] = None
         self.outputs: Optional[dict] = None
@@ -247,7 +246,6 @@ class FrameGraph:
                     self.new_capture(self.left.device))
         with stats.span("rtdm.engine.replay"):
             replay(self.segments)
-        self.sweeps.replayed()
         return dict(self.outputs)
 
 

@@ -4,9 +4,8 @@
 the JAX package's own tests, tests/test_engine_batch.py, hold to its
 single-frame `_step` frame by frame): SGM-8 and BM at 192x64 with B = 2,
 the out-of-image maps of tests/test_engine_batch.py with B = 3, and SGM-8
-with the WLS post filter. `process_batch` and `step_batch`
-and `dispatch_batch` (the pipelined mode) against `process_pair` on each
-rig's pair. Integer fields bit-exact,
+with the WLS post filter. `process_batch` and `step_batch` against
+`process_pair` on each rig's pair. Integer fields bit-exact,
 depth_cm and mean_z to rtol 1e-5, filtered_disparity within 1 on 99.9% of
 the pixels and 16 everywhere (tests/test_torch_engine.py)."""
 
@@ -170,9 +169,5 @@ def test_process_and_step_batch_match_process_pair():
         for b in range(B):
             _assert_frame(dataclasses.asdict(res[b]), dataclasses.asdict(refs[b]),
                           f"rig {b}")
-    # the pipelined mode's B frame programs give the same frames
-    for b, out in enumerate(eng.dispatch_batch(lefts, rights)):
-        _assert_frame(_to_host(out), dataclasses.asdict(refs[b]),
-                      f"dispatch_batch rig {b}")
     with pytest.raises(ValueError, match="batch 2"):
         eng.process_batch(lefts[:1], rights[:1])

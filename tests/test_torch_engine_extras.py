@@ -162,7 +162,7 @@ def test_batch_needs_b_pairs_and_batch_over_one():
                   source=_source(), device="cpu")
     left, right = _pair()
     with pytest.raises(ValueError, match="batch 2"):
-        teng.dispatch_batch([left], [right])
+        teng.process_batch([left], [right])
     single = Engine(_cfg(), source=_source(), device="cpu")
     with pytest.raises(ValueError, match="batch > 1"):
         single.process_batch([left], [right])

@@ -4,7 +4,8 @@ every field over several frames: BM, SGM-8 on the bidir route, SGM-5 on the
 chained route, a nonzero min_disparity, the WLS post filter with the mean
 disparity of each box. Also: the outputs a loop still holds survive the
 next replays (`run` at pipeline depths 2 and 3, both matchers, each frame's
-images in pinned memory of its own; `run_preloaded`'s dispatch), a setter
+images in pinned memory of its own), `run_preloaded` replays every frame
+from the second on and leaves its last frame's outputs in the capture, a setter
 between frames captures again and the next frame equals a fresh engine's,
 the capture works while `run`'s prefetch thread grabs, and under a
 profiler `benchmark/harness/spans.py` gives each stage range the same
@@ -14,6 +15,7 @@ its own and only under a profiler, and `run` puts each frame's own counts
 into the trace. `run`'s dispatch never waits for the card. Needs the card:
 run with `python3 -m pytest --noconftest` there (no JAX)."""
 
+import contextlib
 import threading
 import time
 
@@ -134,26 +136,34 @@ def test_run_outputs_survive_later_replays(depth, kind):
 
 
 @pytest.mark.cuda
-def test_run_preloaded_outputs_survive_later_replays():
+def test_run_preloaded_outputs_survive_later_replays(monkeypatch):
+    """`run_preloaded` dispatches its device-resident pairs into the
+    capture: every frame from the second on replays, and after it returns
+    the capture's outputs equal the eager program on the last pair."""
     cuda_or_skip()
     eng = Engine(_cfg(), source=_source(), device="cuda")
-    kept = []
-    dispatch = eng._dispatch_resident
+    dispatched, replays = [], []
+    dispatch, replay = eng._dispatch, graphs.replay
 
-    def keeping(left, right):
-        out = dispatch(left, right)
-        kept.append((left, right, out))
-        return out
+    def logged(left, right):
+        dispatched.append((left, right))
+        return dispatch(left, right)
 
-    eng._dispatch_resident = keeping
+    def counted(segments):
+        replays.append(len(dispatched))
+        return replay(segments)
+
+    eng._dispatch = logged
+    monkeypatch.setattr(graphs, "replay", counted)
     eng.run_preloaded(10, n_inputs=4, pipeline_depth=3)
-    torch.cuda.synchronize()
-    assert len(kept) == 10 and _graph(eng).calls == 10
-    for i, (left, right, out) in enumerate(kept):
-        ref = eng.frame_program(left, right)
-        for k, v in ref.items():
-            if v is not None:
-                assert torch.equal(out[k].nan_to_num(), v.nan_to_num()), f"frame {i} {k}"
+    prog = _graph(eng)
+    assert len(dispatched) == 10 and prog.calls == 10
+    assert replays == list(range(2, 11))
+    assert all(left.is_cuda and right.is_cuda for left, right in dispatched)
+    ref = eng.frame_program(*dispatched[-1])
+    for k, v in ref.items():
+        if v is not None:
+            assert torch.equal(prog.outputs[k].nan_to_num(), v.nan_to_num()), k
 
 
 @pytest.mark.cuda
@@ -290,21 +300,16 @@ def test_profiler_sees_the_stage_ranges_alike(kind, tmp_path):
 def test_sweep_counts_under_replay(kind):
     """The capture's counter is filled by each replay with the sweeps the
     eager program's K2 calls ran on the same frame. Outside a profiler
-    neither the replayed dispatch nor the engine's count makes the host
-    wait (set_sync_debug_mode "error") or reads the counter; under one the
-    count range carries the replay's sum."""
+    neither the replayed dispatch nor its `_send` makes the host wait
+    (set_sync_debug_mode "error"), and its `_receive` reads no count; under
+    one the count range carries the replay's sum."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda_or_skip()
     eng = Engine(_cfg(kind), source=_source(), device="cuda")
     src = _source()
     pairs = [src.render(i)[:2] for i in range(4)]
-    expect = []
-    for left, right in pairs:
-        with eng._sweeps.recording():
-            eng.frame_program(_dev(left), _dev(right))
-        torch.cuda.synchronize()
-        expect.append(eng._sweeps.take())
+    expect = _program_sweeps(eng, pairs)
     assert eng._sweeps.calls == 3 and all(n > 0 for n in expect)
     for left, right in pairs[:2]:  # eager, captured
         eng.process_pair(left, right)
@@ -315,13 +320,14 @@ def test_sweep_counts_under_replay(kind):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            eng._dispatch_resident(dl, dr)
-            eng._count_sweeps()  # no profiler: no read
+            out, sweeps = eng._dispatch(dl, dr)
+            sent = eng._send(out, sweeps)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        assert prog.sweeps.fresh and prog.sweeps.calls == 3
-        torch.cuda.synchronize()
-        assert prog.sweeps.take() == n
+        assert sweeps is prog.sweeps and prog.sweeps.calls == 3
+        sent.sweep_count = None  # no profiler: `_receive` reads no count
+        eng._receive(sent, contextlib.nullcontext())
+        assert int(prog.sweeps.words[:3].sum()) == n
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         got = [eng.process_pair(left, right) for left, right in pairs]
     names = [e.name for e in prof.events() if e.name.startswith("rtdm.count.")]
@@ -334,8 +340,7 @@ def _program_sweeps(eng, pairs):
     for left, right in pairs:
         with eng._sweeps.recording():
             eng.frame_program(_dev(left), _dev(right))
-        torch.cuda.synchronize()
-        out.append(eng._sweeps.take())
+        out.append(int(eng._sweeps.words[:eng._sweeps.calls].sum()))
     return out
 
 

@@ -351,20 +351,21 @@ def test_run_and_run_preloaded_go_through_the_graphs():
 
 
 def test_a_replay_hands_back_the_capture_outputs():
-    """A replay returns the capture's own output tensors (the caller copies
-    them out before the next replay); `run_preloaded`'s dispatch, whose loop
-    holds device outputs, copies them."""
+    """A replay returns the capture's own output tensors and counter (the
+    caller copies them out before the next replay), from host images and
+    from device tensors alike."""
     eng = _engine()
     captures = []
     _counted(eng, captures)
     left, right = (torch.from_numpy(a) for a in _source().render(0)[:2])
     for _ in range(3):
-        out = eng._dispatch(*_source().render(0)[:2])
+        out, sweeps = eng._dispatch(*_source().render(0)[:2])
     (prog,) = eng._graphs._by_shape.values()
     assert prog.calls == 3 and all(out[k] is v for k, v in prog.outputs.items())
-    kept = eng._dispatch_resident(left, right)
-    assert all(kept[k] is not v and torch.equal(kept[k].nan_to_num(), v.nan_to_num())
-               for k, v in prog.outputs.items() if v is not None)
+    assert sweeps is prog.sweeps
+    out, sweeps = eng._dispatch(left, right)
+    assert prog.calls == 4 and sweeps is prog.sweeps
+    assert all(out[k] is v for k, v in prog.outputs.items())
 
 
 @pytest.mark.parametrize("prefetch", [False, True])
@@ -394,9 +395,9 @@ def test_run_retires_frame_i_between_dispatches_i_plus_depth_minus_1_and_i_plus_
 
 @pytest.mark.parametrize("depth", [2, 3])
 def test_cpu_run_results_equal_the_eager_program(depth):
-    """On the CPU `run` hands over `_to_host` of each frame's program, as
-    before the card's pinned copies: every result the consumer kept equals
-    the program on its pair after the loop."""
+    """On the CPU `run` hands over each frame's own program outputs, copied
+    to the host when the frame retires: every result the consumer kept
+    equals the program on its pair after the loop."""
     eng = _engine("sgm")
     got = {}
     eng.run(frames=5, on_frame=lambda i, r: got.__setitem__(i, r),
@@ -417,10 +418,9 @@ def test_the_batch_paths_stay_eager():
     captures = []
     calls = _counted(eng, captures)
     pairs = [_source(s).render(0)[:2] for s in (3, 4)]
-    eng.dispatch_batch([p[0] for p in pairs], [p[1] for p in pairs])
     eng.process_batch([p[0] for p in pairs], [p[1] for p in pairs])
     eng.step_batch()
-    assert calls == [False, False]  # dispatch_batch's two eager programs
+    assert calls == []  # the batch program is not the frame program
     assert captures == [] and eng._graphs._by_shape == {}
 
 

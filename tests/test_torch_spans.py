@@ -14,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from rt_depth_map_tpu_torch import Engine
 from rt_depth_map_tpu_torch.config import EngineConfig, MatcherConfig
 from rt_depth_map_tpu_torch.ops.cuda.cc_sweep import SweepCounter
-from rt_depth_map_tpu_torch.pipeline import stats
+from rt_depth_map_tpu_torch.pipeline import engine, stats
 from rt_depth_map_tpu_torch.sources import MultiStreamSource, SyntheticStereoSource
 from rt_depth_map_tpu_torch.sources.synthetic import SyntheticObject
 from torch_helpers import profiled_spans
@@ -238,11 +238,10 @@ def _program_sweeps(eng, frames):
 
 @pytest.mark.parametrize("loop", ["run", "step", "step_batch"])
 def test_cc_sweeps_counted_once_a_program_under_a_profiler(loop):
-    """Each read of a whole result puts the K2 sweeps of the program
-    dispatched last into the trace, once: `run` reads frame i + 1's program
-    when it retires frame i, so 3 frames give 2 counts; a batch step's
-    count sums its frames' calls. The count ranges hold nothing and nest in
-    nothing."""
+    """Each read of a whole result puts the K2 sweeps of its own program
+    into the trace, once: `run` counts each frame's sweeps when it retires
+    it, so 3 frames give 3 counts; a batch step's count sums its frames'
+    calls. The count ranges hold nothing and nest in nothing."""
     batch = 2 if loop == "step_batch" else 1
     eng = _engine(batch=batch)
     if loop == "run":
@@ -255,7 +254,7 @@ def test_cc_sweeps_counted_once_a_program_under_a_profiler(loop):
     assert all(_ancestors(e) == [] and not e.cpu_children
                for e in spans if e.name.startswith(SWEEPS))
     if loop == "run":
-        assert counts == _program_sweeps(eng, [_source().render(i)[:2] for i in (1, 2)])
+        assert counts == _program_sweeps(eng, [_source().render(i)[:2] for i in (0, 1, 2)])
     elif loop == "step":
         assert counts == _program_sweeps(eng, [_source().render(0)[:2]])
     else:
@@ -266,12 +265,15 @@ def test_cc_sweeps_counted_once_a_program_under_a_profiler(loop):
 
 
 def test_cc_sweeps_not_read_without_a_profiler(monkeypatch):
-    def read(self):
-        raise AssertionError("the sweep counter was read without a profiler")
+    reads = []
 
-    monkeypatch.setattr(SweepCounter, "take", read)
+    def read(self):
+        reads.append(self)
+        return 0
+
+    monkeypatch.setattr(engine._Sent, "sweep_count", read)
     eng = _engine()
     eng.run(frames=3, on_frame=lambda i, r: True, print_stats_on_sigint=False)
     eng.step()
     _engine(batch=2).step_batch()
-    assert eng._sweeps.fresh and eng._sweeps.calls == 3
+    assert reads == [] and eng._sweeps.calls == 3
